@@ -14,3 +14,10 @@ except ImportError:
     from _hypothesis_fallback import install as _install_hypothesis_fallback
 
     _install_hypothesis_fallback()
+
+
+def pytest_configure(config):
+    # tests of the PyTorch/CUDA port's kernels on the card; each skips
+    # (from inside the test) when torch sees no CUDA device
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one")
