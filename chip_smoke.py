@@ -14,12 +14,28 @@ Phases (any failure exits non-zero and prints no result line):
    per launch beside the bound and a PyTorch yardstick (``library_ms``);
 2. the sweep epilogue and K2 (``bsr_converge_cols``) against their plain
    versions on the card: rank_k 0 and 10, ladder off and bf16;
+2b. K3 (``seg_matmul``) through its path ``kernels.ops.seg_aggregate``
+   (launch counter zeroed just before, read just after) on britannica's
+   edges (bs 128, tile_e 256), seeded messages of widths 1, 8 and 64 in
+   f32 and of width 8 in f64 and bf16; each case equal bit for bit to the
+   plain version on the card and within a rounding bound of the f32 oracle
+   ``seg_matmul_ref``; time per launch beside the byte bound and the
+   ``index_add_`` yardstick;
 3. the main path: ``RankService.rank`` on ``paper_dataset("britannica")``
    with the ``bsr`` backend on the card, 3 batches of 8 seeded queries of 50
    roots, a repeat batch served from cache, then a rank_k=10 service and a
    bf16-ladder service; every query is held to the same service on the CPU,
    and the launch counters (zeroed just before each run) must show K1, the
    epilogue and K2 ran;
+3b. live edge deltas on the f64 ``bsr`` service: the 3 batches, a
+   weight-only delta (1 % of the first batch's union edges reweighted by
+   2.0, drawn from the seed) and the same 24 queries again (the service
+   must patch at least one plan, and build no cold plan for a union it
+   patched), then a structural delta (adds and removes) and the queries
+   again; every query held to a CPU service given the same deltas; the
+   patch time beside a cold plan of the same union;
+3c. the paper's whole-graph ``accel_hits`` and ``qi_hits`` on britannica,
+   f64, tol 1e-10, on the card against the same calls on the CPU;
 4. a ``{"kernels": [...]}`` line, then the contract's last line.
 
 It imports torch, numpy and the port only. Times come from CUDA events over
@@ -62,6 +78,10 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels import bsr_spmm as K
+    from repro_torch.kernels import ops as O
+    from repro_torch.kernels.ref import seg_matmul_ref
+    from repro_torch.kernels.seg_matmul import seg_matmul, seg_matmul_plain
+    from repro_torch.core import accel_hits, qi_hits
     from repro_torch.serve import (BsrSweepBackend, RankService,
                                    RankServiceConfig)
     from repro_torch.serve.pipeline import PipelineJob
@@ -82,9 +102,10 @@ def main():
     build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s wall "
           f"(nvcc {build.build_seconds})", flush=True)
-    for line in build.ptxas_report("bsr_spmm").splitlines():
-        if "registers" in line or "spill" in line:
-            print("[ptxas]", line.strip())
+    for name in build.SOURCES:
+        for line in build.ptxas_report(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas {name}]", line.strip())
 
     def ms(fn, n):
         """Mean ms per call of fn over n calls after two warm-up calls."""
@@ -294,6 +315,94 @@ def main():
                      f"{entry['reread_ms']:.4f})" if "ms" in entry else ""),
                   flush=True)
 
+    # -------------------------------------------- 2b. K3 (seg_aggregate)
+    tdt = {"float64": torch.float64, "float32": torch.float32,
+           "bfloat16": torch.bfloat16}
+    bs3, tile_e = 128, 256
+    seg = O.build_tiled_segments(g.dst, g.n_nodes, bs=bs3, tile_e=tile_e)
+    n_blocks, e_pad = seg["n_blocks"], seg["e_pad"]
+    blkid_d, off_d, valid_d = (torch.from_numpy(np.ascontiguousarray(
+        seg[k], np.int32)).to(dev) for k in ("blkid", "off", "valid"))
+    tile_ptr = O.tile_ptr_of(seg["blkid"], n_blocks)
+    tile_ptr_d = torch.from_numpy(tile_ptr).to(dev)
+    tiles_of_blk = np.diff(tile_ptr)
+    print(f"[K3 shape] britannica E={g.n_edges} n_blocks={n_blocks} "
+          f"n_tiles={len(seg['blkid'])} e_pad={e_pad} tiles per block "
+          f"max {tiles_of_blk.max()}", flush=True)
+    # per destination row: its messages and its block's tiles, for the
+    # rounding bound against the f32 oracle
+    n_row = torch.from_numpy(np.bincount(g.dst, minlength=n_blocks * bs3)
+                             .astype(np.float64)).to(dev)[:, None]
+    tiles_row = torch.from_numpy(np.repeat(tiles_of_blk, bs3).astype(
+        np.float64)).to(dev)[:, None]
+    k3_cases = [(1, "float32"), (8, "float32"), (64, "float32"),
+                (8, "float64"), (8, "bfloat16")]
+    rng3 = np.random.default_rng(SEED + 3)
+    host_msgs = {f: rng3.standard_normal((g.n_edges, f)) for f in (1, 8, 64)}
+    msgs = {(f, dt): torch.from_numpy(host_msgs[f]).to(dev, tdt[dt])
+            for f, dt in k3_cases}
+    torch.cuda.synchronize()
+    K.reset_counters()
+    agg = {c: O.seg_aggregate(msgs[c], seg, bs=bs3, n_nodes=g.n_nodes)
+           for c in k3_cases}
+    torch.cuda.synchronize()
+    k3_launches = K.counters.seg_matmul
+    check(k3_launches == len(k3_cases),
+          f"seg_aggregate launched K3 {k3_launches} times for "
+          f"{len(k3_cases)} calls")
+    dst_d = torch.from_numpy(g.dst).to(dev)
+    k3 = {}
+    for f, name in k3_cases:
+        m = O.pad_messages(msgs[(f, name)], seg).contiguous()
+        y = seg_matmul(blkid_d, m, off_d, valid_d, n_blocks, bs=bs3,
+                       tile_ptr=tile_ptr_d)
+        yp = seg_matmul_plain(blkid_d, m, off_d, valid_d, n_blocks, bs=bs3)
+        torch.cuda.synchronize()
+        err = (y.double() - yp.double()).abs().max().item()
+        check(torch.equal(y, yp),
+              f"K3 F={f} {name}: kernel differs from the plain version "
+              f"(max {err:.3e})")
+        check(torch.equal(y[:g.n_nodes], agg[(f, name)]),
+              f"K3 F={f} {name}: seg_aggregate differs from seg_matmul")
+        # the f32 oracle sums each row in another order: both stay within
+        # (n - 1) f32 roundings of sum|m| of the exact sum, and the kernel
+        # adds one rounding per tile (bf16: to bf16 per tile and per add)
+        ref = seg_matmul_ref(blkid_d, m, off_d, valid_d, n_blocks, bs3)
+        rowabs = seg_matmul_ref(blkid_d, m.abs(), off_d, valid_d, n_blocks,
+                                bs3).double()
+        bound = (2 * n_row + 2 * tiles_row + 2) * 2.0 ** -24 * rowabs
+        if name == "bfloat16":
+            bound = bound + (2 * tiles_row + 1) * 2.0 ** -8 * rowabs
+        gap = (y.double() - ref.double()).abs()
+        check(bool((gap <= bound).all()),
+              f"K3 F={f} {name}: off the oracle by more than its rounding "
+              f"bound ({(gap - bound).max().item():.3e} over)")
+        t_k = ms(lambda: seg_matmul(blkid_d, m, off_d, valid_d, n_blocks,
+                                    bs=bs3, tile_ptr=tile_ptr_d), 20)
+        t_p = ms(lambda: seg_matmul_plain(blkid_d, m, off_d, valid_d,
+                                          n_blocks, bs=bs3), 2)
+        # the yardstick adds the E real messages, unpadded, into their rows
+        raw = msgs[(f, name)]
+        zeros = torch.zeros((n_blocks * bs3, f), dtype=m.dtype, device=dev)
+        t_lib = ms(lambda: zeros.clone().index_add_(0, dst_d, raw), 20)
+        # the kernel reads off/valid of every slot and the message row of
+        # each valid slot only (padded slots are skipped), writes y once
+        moved = (g.n_edges * f * m.element_size() + 8 * e_pad
+                 + nbytes(y))
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = g.n_edges * f / PEAK_FLOPS["float32"] * 1e3
+        k3[(f, name)] = dict(err=err, ms=t_k, plain_ms=t_p,
+                             library_ms=t_lib, bound_ms=max(t_bytes, t_ops),
+                             bound_by="bytes" if t_bytes >= t_ops
+                             else "operations")
+        print(f"[K3 F={f} {name}] max_abs_err={err:.3e} (bit-equal) "
+              f"oracle gap {gap.max().item():.3e} ms={t_k:.4f} "
+              f"plain_ms={t_p:.4f} library_ms={t_lib:.4f} (index_add_) "
+              f"bound_ms={max(t_bytes, t_ops):.4f} ({moved / 1e6:.1f} MB "
+              f"at 3.35 TB/s) -> {moved / (t_k * 1e-3) / 1e12:.2f} TB/s",
+              flush=True)
+    del msgs, agg
+
     # ----------------------------------------------------- 3. main path
     def serve(extra, label):
         svc = RankService(g, RankServiceConfig(device="cuda", **cfg, **extra))
@@ -382,6 +491,153 @@ def main():
     serve({"rank_k": 10}, "rank_k=10")
     serve({"sweep_dtype": "bf16"}, "bf16 ladder")
 
+    # ------------------------------------------- 3b. live edge deltas
+    def delta_counts(svc):
+        snap = svc.telemetry_snapshot()
+        return dict(patched=snap["service.delta.patched"]["bsr"],
+                    replanned=snap["service.delta.replanned"],
+                    invalidated=snap["service.delta.invalidated"],
+                    plan_misses=svc.stats["plan_misses"],
+                    plan_hits=svc.stats["plan_hits"])
+
+    def plan_stage_ms(svc):
+        """Plan-stage ms per batch of the service's last run."""
+        last = max(t[0] for t in svc.pipeline.trace)
+        return {j: (t1 - t0) * 1e3 for run, j, stage, t0, t1
+                in svc.pipeline.trace if run == last and stage == "plan"}
+
+    pair = {d: RankService(g, RankServiceConfig(device=d, **cfg))
+            for d in ("cuda", "cpu")}
+
+    def serve_both(label):
+        """The 24 queries on the card and on the CPU: every query equal to
+        1e-10 L1 with equal iters and status, equal delta counters."""
+        before = delta_counts(pair["cuda"])
+        torch.cuda.synchronize()
+        K.reset_counters()
+        t0 = time.perf_counter()
+        got = pair["cuda"].rank(queries)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.counters.bsr_spmm
+        want = pair["cpu"].rank(queries)
+        worst = 0.0
+        for i, (r, o) in enumerate(zip(got, want)):
+            l1 = max(np.abs(r.authority - o.authority).sum(),
+                     np.abs(r.hub - o.hub).sum())
+            worst = max(worst, l1)
+            check(np.isfinite(r.authority).all() and r.status == o.status
+                  and r.iters == o.iters and l1 <= 1e-10,
+                  f"delta {label} query {i}: cuda iters={r.iters} "
+                  f"{r.status} vs cpu iters={o.iters} {o.status}, "
+                  f"L1 {l1:.3e}")
+        counts = delta_counts(pair["cuda"])
+        check(counts == delta_counts(pair["cpu"]),
+              f"delta {label}: counters {counts} vs the CPU service's "
+              f"{delta_counts(pair['cpu'])}")
+        moved = {k: counts[k] - before[k] for k in counts}
+        statuses = {st: sum(r.status == st for r in got)
+                    for st in ("hit", "warm", "cold")}
+        plan = plan_stage_ms(pair["cuda"])
+        print(f"[delta {label}] {wall * 1e3:.1f} ms for 24 queries "
+              f"({statuses}); K1 launches {launches}; counters moved "
+              f"{moved}; plan stage ms per batch "
+              + " ".join(f"{plan[j]:.2f}" for j in sorted(plan))
+              + f"; matches the CPU service: max L1 {worst:.2e}, iters "
+              "equal", flush=True)
+        return moved, got
+
+    serve_both("before")
+    union0 = pair["cuda"].extractor.extract_union(
+        [pair["cuda"].extractor.extract(pair["cuda"].validate_roots(q))
+         for q in queries[:8]])
+    ug = union0.graph
+    rng_d = np.random.default_rng(SEED + 4)
+    pick = rng_d.choice(ug.n_edges, max(1, ug.n_edges // 100), replace=False)
+    pairs = [(int(union0.nodes[ug.src[i]]), int(union0.nodes[ug.dst[i]]))
+             for i in pick]
+    # a probe service with the same graph and deltas: the patch and a cold
+    # plan of the first batch's union, timed directly
+    probe_d = RankService(g, RankServiceConfig(device="cuda", **cfg))
+    be = BsrSweepBackend(bs=128, device="cuda")
+    job0 = PipelineJob(queries=[probe_d.validate_roots(q)
+                                for q in queries[:8]], refresh=True)
+    pre = probe_d.pipeline.assemble(job0).batch
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    plan_pre, cold_pre_ms = timed(lambda: be.plan(pre))
+    summ = {d: pair[d].apply_edge_delta(reweights=[(a, b, 2.0)
+                                                   for a, b in pairs])
+            for d in pair}
+    probe_d.apply_edge_delta(reweights=[(a, b, 2.0) for a, b in pairs])
+    check(summ["cuda"]["invalidated"] == summ["cpu"]["invalidated"]
+          and not summ["cuda"]["structural"],
+          f"weight delta summaries differ: {summ}")
+    post = probe_d.pipeline.assemble(job0).batch
+    patched, patch_ms = timed(lambda: be.patch(plan_pre, post))
+    fresh, cold_post_ms = timed(lambda: be.plan(post))
+    check(patched is not None and all(
+        torch.equal(getattr(patched, o).blocks, getattr(fresh, o).blocks)
+        for o in ("lt", "lfwd")), "the patched plan's blocks differ from "
+          "a fresh plan's")
+    print(f"[delta weights] {len(pairs)} of the first union's {ug.n_edges} "
+          f"edges reweighted by 2.0; swap {summ['cuda']['swap_ms']:.2f} ms, "
+          f"{summ['cuda']['invalidated']} cached results invalidated; "
+          f"first union: patch_ms={patch_ms:.2f} vs cold plan_ms "
+          f"{cold_pre_ms:.2f} (before) {cold_post_ms:.2f} (after)",
+          flush=True)
+    moved, got = serve_both("after weights")
+    check(moved["patched"] >= 1, f"no bsr plan was patched: {moved}")
+    check(moved["replanned"] == 0, f"a patchable plan was rebuilt: {moved}")
+    # a batch whose 8 queries were all invalidated has its old union (the
+    # same topology): patched or, where no edge of it changed, a plan hit,
+    # never a cold plan; only a batch with some cache hits has a new union
+    hits = [sum(r.status == "hit" for r in got[8 * b:8 * b + 8])
+            for b in range(3)]
+    partial = sum(0 < h < 8 for h in hits)
+    check(moved["plan_misses"] == partial,
+          f"{moved['plan_misses']} cold plans for {partial} batches with a "
+          f"new union (cache hits per batch {hits})")
+    # structural: remove 3 of the first union's edges, add 3 new ones
+    existing = set(zip(g.src.tolist(), g.dst.tolist()))
+    removes = pairs[-3:]
+    adds = []
+    while len(adds) < 3:
+        a, b = (int(x) for x in rng_d.choice(union0.nodes, 2,
+                                             replace=False))
+        if (a, b) not in existing and (a, b) not in adds:
+            adds.append((a, b))
+    summ = {d: pair[d].apply_edge_delta(adds=adds, removes=removes)
+            for d in pair}
+    check(summ["cuda"]["structural"] and summ["cuda"]["invalidated"]
+          == summ["cpu"]["invalidated"], f"structural summaries {summ}")
+    print(f"[delta structural] removes {removes} adds {adds}; swap "
+          f"{summ['cuda']['swap_ms']:.2f} ms, {summ['cuda']['invalidated']} "
+          "cached results invalidated", flush=True)
+    serve_both("after adds/removes")
+
+    # ------------------------------------------- 3c. whole-graph HITS
+    for name, fn in (("accel_hits", accel_hits), ("qi_hits", qi_hits)):
+        r, t_card = timed(lambda: fn(g, tol=1e-10, device="cuda"))
+        t0 = time.perf_counter()
+        o = fn(g, tol=1e-10, device="cpu")
+        t_cpu = (time.perf_counter() - t0) * 1e3
+        l1 = max(np.abs(r.v - o.v).sum(), np.abs(r.aux - o.aux).sum())
+        check(r.converged and r.iters == o.iters and l1 <= 1e-10
+              and np.isfinite(r.v).all() and r.v.shape == (g.n_nodes,),
+              f"{name}: card iters={r.iters} converged={r.converged} vs "
+              f"cpu iters={o.iters}, L1 {l1:.3e}")
+        print(f"[{name}] britannica f64 tol 1e-10: {r.iters} sweeps, "
+              f"{t_card:.1f} ms wall on the card (EdgeList build "
+              f"included), {t_cpu:.1f} ms on the host CPU; matches the CPU "
+              f"run: L1 {l1:.2e}, iters equal", flush=True)
+
     # ---------------------------------------------------- 4. result lines
     kernels = [
         dict(name="bsr_spmm", route="cuda",
@@ -406,6 +662,16 @@ def main():
              ms=k2[(0, None)]["ms"], plain_ms=k2[(0, None)]["plain_ms"],
              bound_ms=k2[(0, None)]["bound_ms"],
              bound_by=k2[(0, None)]["bound_by"], library_ms=None),
+        dict(name="seg_matmul", route="cuda",
+             source="src/repro_torch/kernels/csrc/seg_matmul.cu",
+             replaces="src/repro/kernels/seg_matmul.py:25",
+             launches=k3_launches,
+             max_abs_err=max(e["err"] for e in k3.values()),
+             ms=k3[(64, "float32")]["ms"],
+             plain_ms=k3[(64, "float32")]["plain_ms"],
+             bound_ms=k3[(64, "float32")]["bound_ms"],
+             bound_by=k3[(64, "float32")]["bound_by"],
+             library_ms=k3[(64, "float32")]["library_ms"]),
     ]
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -3,6 +3,8 @@
 bsr_spmm: block-sparse adjacency x multi-vector with fused Ca/Ch scaling
           (K1) and the on-device convergence loop around it (K2) with its
           sweep-epilogue kernel.
+seg_matmul: tiled segment-sum of gathered edge messages (K3), behind
+          ``ops.seg_aggregate``.
 The kernels build at first use from ``csrc/`` (``kernels.build``); on CPU
 tensors every wrapper runs its plain version.
 """
@@ -12,7 +14,9 @@ from .bsr_spmm import (BsrOperand, LoopState, bsr_converge_cols,
                        sweep_certificate, sweep_certificate_plain,
                        sweep_epilogue, sweep_epilogue_plain)
 from .ops import (DeviceBSR, bsr_converge, bsr_matvec, bsr_revalue,
-                  classify_exit, pad_empty_rows)
+                  build_tiled_segments, classify_exit, pad_empty_rows,
+                  pad_messages, seg_aggregate)
+from .seg_matmul import seg_matmul, seg_matmul_plain
 
 __all__ = [
     "BsrOperand", "LoopState", "bsr_converge_cols", "bsr_converge_cols_plain",
@@ -20,4 +24,6 @@ __all__ = [
     "reset_counters", "sweep_certificate", "sweep_certificate_plain",
     "sweep_epilogue", "sweep_epilogue_plain", "DeviceBSR", "bsr_converge",
     "bsr_matvec", "bsr_revalue", "classify_exit", "pad_empty_rows",
+    "build_tiled_segments", "pad_messages", "seg_aggregate", "seg_matmul",
+    "seg_matmul_plain",
 ]

@@ -19,8 +19,9 @@ PyTorch version of the same signature beside it:
 
 A wrapper runs its plain version only when it is given CPU tensors; for
 CUDA tensors it launches its kernel or raises. The kernels build at first
-use (``kernels.build``). ``counters`` counts launches per wrapper and the
-loop's host syncs; ``reset_counters()`` zeroes them.
+use (``kernels.build``), which also holds ``counters``: one object, shared
+with K3, that counts launches per wrapper and the loop's host syncs;
+``reset_counters()`` zeroes them.
 
 Rounding copies the Pallas kernel, not the f32 oracle (``kernels.ref``):
 x ⊙ cin in x's dtype, block products accumulated in f64 for f64 blocks
@@ -41,35 +42,13 @@ import torch
 
 from ..runtime import tol_in, torch_dtype
 from . import build as _build
+from .build import counters, reset_counters  # noqa: F401
 
 _DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
 BLOCK_SIZES = (16, 32, 64, 128)
 V_GROUP = 16   # widest column group one K1 launch takes
 CHUNK = 8      # sweeps enqueued between two reads of the stop flag
 _EPS = 1e-30
-
-
-class Counters:
-    """Plain integer counts of this module's launches and host syncs."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.bsr_spmm = 0        # K1 kernel launches
-        self.sweep_epilogue = 0  # epilogue kernel launches (sweep + certificate)
-        self.bsr_converge = 0    # K2 device loops run
-        self.host_syncs = 0      # K2 reads of the device stop flag
-
-    def as_dict(self) -> dict:
-        return dict(vars(self))
-
-
-counters = Counters()
-
-
-def reset_counters():
-    counters.reset()
 
 
 class BsrOperand(NamedTuple):

@@ -7,6 +7,7 @@ over the source and the flags, so an edited source never loads a stale
 library. ``build_all`` starts one ``nvcc`` per source at once. The
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills per
 kernel) is kept beside each library as ``<name>_<hash>.log``.
+``counters`` counts every wrapper's kernel launches.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from pathlib import Path
 from typing import Callable, Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bsr_spmm",)
+SOURCES = ("bsr_spmm", "seg_matmul")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -30,6 +31,31 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # wall seconds of each nvcc run made by this process (absent: prebuilt)
 build_seconds: Dict[str, float] = {}
+
+
+class Counters:
+    """Plain integer counts of kernel launches, one field per wrapper, and
+    K2's host syncs; a wrapper adds one where it launches its kernel."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.bsr_spmm = 0        # K1 kernel launches
+        self.sweep_epilogue = 0  # epilogue kernel launches (sweep + certificate)
+        self.bsr_converge = 0    # K2 device loops run
+        self.host_syncs = 0      # K2 reads of the device stop flag
+        self.seg_matmul = 0      # K3 kernel launches
+
+    def as_dict(self) -> dict:
+        return dict(vars(self))
+
+
+counters = Counters()
+
+
+def reset_counters():
+    counters.reset()
 
 
 def _nvcc() -> str:

@@ -1,6 +1,6 @@
-"""Host-side BSR preparation and the wrappers over the BSR kernels (port
-of the BSR half of ``repro.kernels.ops``; the segment-sum half waits for
-its kernel)."""
+"""Host-side BSR and segment preparation and the wrappers over the
+kernels (port of ``repro.kernels.ops``; ``hits_sweep_bsr`` is not ported,
+ROADMAP Queue 1 item 9)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +12,7 @@ import torch
 from ..graph.structure import BSR, Graph, to_bsr
 from ..runtime import resolve_device, torch_dtype
 from .bsr_spmm import BsrOperand, bsr_converge_cols, bsr_scaled_matvec
+from .seg_matmul import seg_matmul
 
 
 def pad_empty_rows(bsr: BSR) -> BSR:
@@ -37,18 +38,28 @@ def pad_empty_rows(bsr: BSR) -> BSR:
                bcol[order].astype(np.int32), row_ptr)
 
 
+def _ptr_of(keys: np.ndarray, n: int, what: str) -> np.ndarray:
+    """The (n + 1,) int32 pointer of sorted keys in [0, n): key k's
+    entries are keys[ptr[k]:ptr[k+1]]."""
+    if keys.size and (np.any(np.diff(keys) < 0) or keys[0] < 0
+                      or keys[-1] >= n):
+        raise ValueError(f"{what} within [0, {n})")
+    ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(keys, minlength=n), out=ptr[1:])
+    return ptr.astype(np.int32)
+
+
 def row_ptr_of(idx: np.ndarray, n_brows: int) -> np.ndarray:
     """The (n_brows + 1,) int32 CSR-over-blocks pointer of a brow-sorted
     (nblocks, 2) idx table."""
-    brow = np.asarray(idx)[:, 0]
-    if brow.size and (np.any(np.diff(brow) < 0) or brow[0] < 0
-                      or brow[-1] >= n_brows):
-        raise ValueError("idx must be sorted by block row within "
-                         f"[0, {n_brows})")
-    counts = np.bincount(brow, minlength=n_brows)
-    row_ptr = np.zeros(n_brows + 1, np.int64)
-    np.cumsum(counts, out=row_ptr[1:])
-    return row_ptr.astype(np.int32)
+    return _ptr_of(np.asarray(idx)[:, 0], n_brows,
+                   "idx must be sorted by block row")
+
+
+def tile_ptr_of(blkid: np.ndarray, n_blocks: int) -> np.ndarray:
+    """K3's (n_blocks + 1,) int32 pointer over ``build_tiled_segments``'
+    sorted blkid: block b owns tiles tile_ptr[b]:tile_ptr[b+1]."""
+    return _ptr_of(np.asarray(blkid), n_blocks, "blkid must be sorted")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,3 +227,60 @@ def classify_exit(conv, res, tol: float, max_iter: int, rank_k: int = 0,
         else:
             out.append("residual")
     return out
+
+
+# ---------------------------------------------------------- seg_matmul path
+def build_tiled_segments(dst: np.ndarray, n_nodes: int, bs: int = 128,
+                         tile_e: int = 256):
+    """Group edges by destination block and pad each block's edge run to
+    whole tiles (every block gets at least one tile). Within a block the
+    edges keep their input order. Returns {perm (E_pad,) slot -> edge (-1:
+    padding), blkid (n_tiles,), off (E_pad,1), valid (E_pad,1), n_blocks,
+    e_pad}; messages are laid out with ``pad_messages``."""
+    order = np.argsort(dst // bs, kind="stable")
+    dst_sorted = dst[order]
+    blk = dst_sorted // bs
+    n_blocks = (n_nodes + bs - 1) // bs
+    counts = np.bincount(blk, minlength=n_blocks)
+    tiles_per_blk = np.maximum(1, -(-counts // tile_e))
+    n_tiles = int(tiles_per_blk.sum())
+    e_pad = n_tiles * tile_e
+    blkid = np.repeat(np.arange(n_blocks, dtype=np.int32), tiles_per_blk)
+    off = np.zeros((e_pad, 1), np.int32)
+    valid = np.zeros((e_pad, 1), np.int32)
+    perm = np.full(e_pad, -1, np.int64)  # padded slot -> original edge
+    write = 0
+    read = 0
+    for b in range(n_blocks):
+        c = int(counts[b])
+        slots = int(tiles_per_blk[b]) * tile_e
+        off[write:write + c, 0] = dst_sorted[read:read + c] - b * bs
+        valid[write:write + c, 0] = 1
+        perm[write:write + c] = order[read:read + c]
+        write += slots
+        read += c
+    return {"perm": perm, "blkid": blkid, "off": off, "valid": valid,
+            "n_blocks": n_blocks, "e_pad": e_pad}
+
+
+def pad_messages(msgs, seg):
+    """Arrange per-edge messages (E, F) into the padded tile layout
+    (E_pad, F), on the messages' device; padded slots are zero."""
+    dev = msgs.device
+    perm = torch.from_numpy(np.maximum(seg["perm"], 0)).to(dev)
+    out = msgs.index_select(0, perm)
+    return out * torch.from_numpy(seg["valid"]).to(dev, msgs.dtype)
+
+
+def seg_aggregate(msgs, seg, *, bs: int = 128, n_nodes: int):
+    """Full segment-sum: messages (E, F) -> node aggregates (n_nodes, F),
+    through K3 (``seg_matmul``) on the messages' device."""
+    dev = msgs.device
+    m = pad_messages(msgs, seg)
+    as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        a, np.int32)).to(dev)
+    y = seg_matmul(as_dev(seg["blkid"]), m.contiguous(), as_dev(seg["off"]),
+                   as_dev(seg["valid"]), seg["n_blocks"], bs=bs,
+                   tile_ptr=as_dev(tile_ptr_of(seg["blkid"],
+                                               seg["n_blocks"])))
+    return y[:n_nodes]

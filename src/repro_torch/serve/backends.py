@@ -33,7 +33,7 @@ import torch
 from ..core.hits import EdgeList, hits_sweep_cols
 from ..core.reordering import blocking_permutation
 from ..graph.structure import Graph
-from ..kernels.ops import DeviceBSR, bsr_converge, bsr_matvec
+from ..kernels.ops import DeviceBSR, bsr_converge, bsr_matvec, bsr_revalue
 from ..runtime import dtype_name, resolve_device, tol_in, torch_dtype
 from ..sparse.spmv import normalize_l1
 from .plans import BsrPlan, DensePlan, SweepPlan, structure_key
@@ -179,6 +179,18 @@ class SweepBackend:
         """Inverse of ``plan_arrays``; also takes the reference backend's."""
         raise NotImplementedError
 
+    def patch(self, plan: SweepPlan, batch: SweepBatch,
+              key: str = "") -> Optional[SweepPlan]:
+        """Value-only update: a plan for ``batch`` built from ``plan``.
+
+        ``plan`` and ``batch`` share a ``plans.topology_key`` — same padded
+        endpoints, different edge weights (an edge-weight delta). Backends
+        that can reuse the old plan's layout return the patched plan, keyed
+        by ``key`` (the batch's new structure_key); None means the caller
+        replans.
+        """
+        return None
+
     def _check(self, plan: SweepPlan, batch: SweepBatch):
         if plan.backend != self.name or plan.n_pad != batch.h0.shape[0]:
             raise ValueError(
@@ -277,6 +289,21 @@ class DenseSweepBackend(SweepBackend):
                                            n_pad, w.dtype),
                          ready=_record_ready(self.device))
 
+    def patch(self, plan: DensePlan, b: SweepBatch,
+              key: str = "") -> DensePlan:
+        """Only the weights ship. The layouts hold the edges sorted by
+        target, so they are rebuilt on the device from the old plan's
+        endpoints with the new weights, pairing each weight with its edge
+        in both sort orders."""
+        self._check(plan, b)
+        e = plan.edges
+        w = torch.from_numpy(np.ascontiguousarray(b.w)).to(
+            self.device, torch_dtype(b.dtype))
+        return DensePlan(key=key or b.structure_key(), backend=self.name,
+                         n_pad=plan.n_pad,
+                         edges=EdgeList.build(e.src, e.dst, e.n, w),
+                         ready=_record_ready(self.device))
+
     def sweep(self, plan: DensePlan, b: SweepBatch):
         self._check(plan, b)
         h0, ca, ch, m = self._tensors(b)
@@ -314,7 +341,8 @@ class BsrSweepBackend(SweepBackend):
         return (self.bs,)
 
     def _plan(self, key: str, n_pad: int, perm, inv, lt: DeviceBSR,
-              lfwd: DeviceBSR, accum: str, bulk) -> BsrPlan:
+              lfwd: DeviceBSR, accum: str, bulk, perm_dev=None,
+              inv_dev=None) -> BsrPlan:
         lt_lo = lfwd_lo = None
         if bulk:
             # ladder: low-precision operator copies share the idx arrays;
@@ -323,8 +351,10 @@ class BsrSweepBackend(SweepBackend):
         as_dev = lambda p: torch.from_numpy(p.astype(np.int64)).to(  # noqa: E731
             self.device)
         return BsrPlan(key=key, backend=self.name, n_pad=n_pad,
-                       perm=perm, inv=inv, perm_dev=as_dev(perm),
-                       inv_dev=as_dev(inv), lt=lt, lfwd=lfwd, bs=lt.bs,
+                       perm=perm, inv=inv,
+                       perm_dev=as_dev(perm) if perm_dev is None else perm_dev,
+                       inv_dev=as_dev(inv) if inv_dev is None else inv_dev,
+                       lt=lt, lfwd=lfwd, bs=lt.bs,
                        accum_dtype=accum, lt_lo=lt_lo, lfwd_lo=lfwd_lo,
                        ready=_record_ready(self.device))
 
@@ -380,6 +410,34 @@ class BsrSweepBackend(SweepBackend):
         inv = np.asarray(arrays["inv"], np.int32)
         return self._plan(key, int(meta["n_pad"]), perm, inv, lt, lfwd,
                           accum, meta.get("bulk") or None)
+
+    def patch(self, plan: BsrPlan, b: SweepBatch,
+              key: str = "") -> Optional[BsrPlan]:
+        """Weight-only update keeping the blocking permutation and block
+        layout: re-scatter the new edge values into the existing idx
+        tables (``kernels.ops.bsr_revalue``) and ship only the block
+        arrays (and the ladder's casts of them); perm, idx and row_ptr
+        stay on the device. Returns None when a retained edge falls
+        outside the old block layout — the caller replans."""
+        self._check(plan, b)
+        real = np.asarray(b.w) != 0  # drop sentinel padding edges
+        src, dst = np.asarray(b.src)[real], np.asarray(b.dst)[real]
+        w = np.asarray(b.w)[real]
+        inv = np.asarray(plan.inv)
+        ps, pd = inv[src], inv[dst]
+        ops = []
+        # lt was built transposed (Graph.reverse swaps endpoints)
+        for op, (s, d) in ((plan.lt, (pd, ps)), (plan.lfwd, (ps, pd))):
+            blocks = bsr_revalue(op.idx.cpu().numpy(), plan.bs, op.n_pad, s,
+                                 d, w)
+            if blocks is None:
+                return None
+            ops.append(dataclasses.replace(op, blocks=torch.from_numpy(
+                blocks).to(torch_dtype(b.dtype)).to(self.device)))
+        # _plan records a fresh ready event after these copies
+        return self._plan(key or b.structure_key(), plan.n_pad, plan.perm,
+                          plan.inv, ops[0], ops[1], plan.accum_dtype,
+                          b.bulk_dtype, plan.perm_dev, plan.inv_dev)
 
     def sweep(self, plan: BsrPlan, b: SweepBatch):
         self._check(plan, b)

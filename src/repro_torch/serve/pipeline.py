@@ -204,7 +204,11 @@ class ServePipeline:
         w = np.zeros(e_pad)
         src[:e_u] = union.graph.src
         dst[:e_u] = union.graph.dst
-        w[:e_u] = 1.0
+        # service-held per-pair edge weights (None until the first
+        # apply_edge_delta: the constant fill keeps pre-delta structure
+        # keys bit-identical to the reference's)
+        uw = svc._union_weights(nodes_u, union.graph.src, union.graph.dst)
+        w[:e_u] = 1.0 if uw is None else uw
 
         ca = np.zeros((n_pad, V))
         ch = np.zeros((n_pad, V))

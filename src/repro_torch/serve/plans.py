@@ -145,6 +145,13 @@ class PlanCache:
         self.stats["hits"] += 1
         return plan
 
+    def peek(self, key: Optional[tuple]) -> Optional[SweepPlan]:
+        """Hit/miss- and LRU-neutral lookup (the delta patch path's probe
+        for a predecessor plan)."""
+        if key is None:
+            return None
+        return self._plans.get(key)
+
     def put(self, key: tuple, plan: SweepPlan):
         if self.capacity <= 0:
             return

@@ -19,16 +19,21 @@ BSR kernels' ``bsr``), with the rank-stability early exit (``rank_k``)
 and the precision ladder (``sweep_dtype``) on both. Every batch runs
 assemble → plan → sweep → publish through one ``ServePipeline``.
 
+Live edge deltas (``apply_edge_delta``) roll adds, removes and
+reweights into the running service: cached results the delta touches are
+invalidated, the warm table carries over, and plans of unchanged
+topologies are value-patched (``SweepBackend.patch``) instead of rebuilt.
+
 The service runs on ``RankServiceConfig.device`` — "cuda" unless the
 caller passes "cpu". Not ported yet, and raising ``NotImplementedError``
-rather than doing nothing: ``apply_edge_delta`` (live edge deltas),
-``queue()`` (the async frontend) and ``spill_dir`` (the restart spill);
-see ROADMAP.md Queue 1.
+rather than doing nothing: ``queue()`` (the async frontend) and
+``spill_dir`` (the restart spill); see ROADMAP.md Queue 1.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 import warnings
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence
@@ -39,9 +44,10 @@ import torch
 from ..graph.structure import Graph
 from ..graph.subgraph import FocusedSubgraph, SubgraphExtractor
 from ..runtime import dtype_name, resolve_device, torch_dtype
-from .backends import (SweepBackend, SweepBatch, dtype_floor, make_backend,
-                       resolve_sweep_dtype, select_backend)
-from .plans import PlanCache, SweepPlan
+from .backends import (BACKENDS, SweepBackend, SweepBatch, dtype_floor,
+                       make_backend, resolve_sweep_dtype, select_backend)
+from .delta import EdgeDelta, apply_to_graph, lookup_weights
+from .plans import PlanCache, SweepPlan, topology_key
 
 NEXT_SLICE = "ROADMAP.md Queue 1 item 7 (serving periphery)"
 
@@ -200,6 +206,21 @@ class RankService:
         self._m_lumped_nodes = reg.counter("service.plan.lumped_nodes")
         self._m_reduction_ratio = reg.histogram(
             "service.plan.reduction_ratio")
+        # live edge deltas: plans value-patched (labeled by the backend that
+        # patched) vs fully replanned, result-cache entries invalidated,
+        # and the swap's wall time
+        for b in BACKENDS:
+            reg.counter("service.delta.patched", b)
+        self._m_delta_replanned = reg.counter("service.delta.replanned")
+        self._m_delta_invalidated = reg.counter("service.delta.invalidated")
+        self._m_delta_swap = reg.histogram("service.delta.swap_ms")
+        # per-pair edge weights, None until the first delta (all 1.0: keeps
+        # every pre-delta structure hash and code path bit-identical)
+        self._edge_table = None
+        # weight-blind plan index: topology key -> the newest full cache key
+        # with that topology, so a post-reweight batch can patch the
+        # predecessor plan instead of rebuilding (see _plan_for)
+        self._topo_index: Dict[tuple, tuple] = {}
         from .pipeline import ServePipeline
         self.pipeline = ServePipeline(self, depth=self.cfg.pipeline_depth)
 
@@ -207,10 +228,6 @@ class RankService:
         raise NotImplementedError(
             f"queue(): the async frontend is not ported yet ({NEXT_SLICE})")
 
-    def apply_edge_delta(self, adds=None, removes=None, reweights=None):
-        raise NotImplementedError(
-            "apply_edge_delta: live edge deltas are not ported yet "
-            "(ROADMAP.md Queue 1 item 6, serve/delta.py)")
 
     # -- backends ---------------------------------------------------------
 
@@ -247,10 +264,38 @@ class RankService:
             if plan is not None:
                 self.stats["plan_hits"] += 1
                 return plan
+        # weight-blind probe: an edge-weight delta changed skey but not the
+        # topology, so a same-topology predecessor plan's layout can be
+        # value-patched instead of rebuilt. The probe is hit/miss-neutral;
+        # a successful patch counts service.delta.patched, a failed one
+        # falls through to the rebuild (service.delta.replanned).
+        tkey = (backend.name, backend.plan_params(),
+                topology_key(batch.src, batch.dst, batch.h0.shape[0],
+                             batch.dtype), stop)
+        with self._lock:
+            old_key = self._topo_index.get(tkey)
+            old_plan = (self._plans.peek(old_key)
+                        if old_key is not None and old_key != key else None)
+        if old_plan is not None:
+            plan = backend.patch(old_plan, batch, skey)
+            if plan is not None:
+                with self._lock:
+                    self._plans.put(key, plan)
+                    self._topo_index[tkey] = key
+                    self.telemetry.counter("service.delta.patched",
+                                           backend.name).inc()
+                    self.stats["plan_evictions"] = \
+                        self._plans.stats["evictions"]
+                return plan
         plan = backend.plan(batch, skey)
         with self._lock:
             self._plans.put(key, plan)
+            self._topo_index[tkey] = key
+            if len(self._topo_index) > 4 * max(self.cfg.plan_cache_size, 1):
+                self._topo_index.clear()  # advisory index; rebuilt by use
             self.stats["plan_misses"] += 1
+            if old_plan is not None:
+                self._m_delta_replanned.inc()
             self.stats["plan_evictions"] = self._plans.stats["evictions"]
         return plan
 
@@ -276,6 +321,67 @@ class RankService:
             self._cache.clear()
             self._warm_h[:] = 0.0
             self._warm_seen[:] = False
+
+    def apply_edge_delta(self, adds=None, removes=None,
+                         reweights=None) -> dict:
+        """Roll an edge changeset into the running service (see
+        ``serve.delta``).
+
+        ``adds``: (src, dst) or (src, dst, w) rows; ``removes``: (src,
+        dst) rows; ``reweights``: (src, dst, w) rows. Weights must be
+        finite and nonzero (reweight-to-0 is a remove). Node ids are
+        fixed at construction — deltas change edges only.
+
+        What survives: the warm table, entirely (post-delta refreshes
+        warm-start from the pre-delta fixed points); plans — a weight-only
+        delta keeps every topology, so the next lookup value-patches the
+        cached layout (``service.delta.patched``), and a structural delta
+        rebuilds only plans whose union subgraphs changed; cached results
+        whose node set misses every changed edge's endpoints (the rest are
+        invalidated: ``service.delta.invalidated``).
+
+        Call it between batches (no batch in flight against the pre-delta
+        graph). Returns a summary dict; timing goes to
+        ``service.delta.swap_ms``. ``data_generation`` is None: it counts
+        spill generations, and the spill is not ported yet.
+        """
+        t0 = time.perf_counter()
+        delta = EdgeDelta.normalize(adds, removes, reweights,
+                                    self.g.n_nodes)
+        if delta.empty:
+            return {"structural": False, "invalidated": 0,
+                    "touched_nodes": 0, "data_generation": None,
+                    "swap_ms": 0.0}
+        new_g, table = apply_to_graph(self.g, self._edge_table, delta)
+        touched = delta.touched_nodes()
+        with self._lock:
+            if delta.structural:
+                self.g = new_g
+                self.extractor = SubgraphExtractor(new_g, self.cfg.out_cap,
+                                                   self.cfg.in_cap)
+            self._edge_table = table
+            doomed = [k for k, e in self._cache.items()
+                      if np.isin(e.nodes, touched, assume_unique=True).any()]
+            for k in doomed:
+                del self._cache[k]
+            self._m_delta_invalidated.inc(len(doomed))
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        self._m_delta_swap.observe(swap_ms)
+        return {"structural": delta.structural, "invalidated": len(doomed),
+                "touched_nodes": int(len(touched)), "data_generation": None,
+                "swap_ms": swap_ms}
+
+    def _union_weights(self, nodes: np.ndarray, src_loc: np.ndarray,
+                       dst_loc: np.ndarray) -> Optional[np.ndarray]:
+        """Per-edge weights for a union subgraph's induced edges (local
+        endpoint arrays + the local->global node map), or None when no
+        delta was ever applied (all 1.0: assemble keeps its constant fill
+        and the reference's structure keys)."""
+        table = self._edge_table
+        if table is None:
+            return None
+        return lookup_weights(table, self.g.n_nodes, nodes[src_loc],
+                              nodes[dst_loc])
 
     def snapshot_stats(self) -> dict:
         """A consistent copy of the stats counters (the legacy key set)."""

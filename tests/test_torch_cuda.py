@@ -19,7 +19,8 @@ from repro_torch.core.weights import accel_weights
 from repro_torch.graph import WebGraphSpec, generate_webgraph
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels import bsr_spmm as K
-from repro_torch.serve import RankService, RankServiceConfig
+from repro_torch.serve import (PipelineJob, RankService, RankServiceConfig,
+                               make_backend)
 
 TDT = {"float64": torch.float64, "float32": torch.float32,
        "bfloat16": torch.bfloat16}
@@ -172,3 +173,152 @@ def test_service_on_the_card_matches_the_cpu(cuda, backend):
         assert r.status == o.status and r.iters == o.iters
         assert np.abs(r.authority - o.authority).sum() <= 1e-10
         assert np.abs(r.hub - o.hub).sum() <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("accum", ["float32", "float64"])
+def test_k3_matches_plain(cuda, dtype, accum):
+    """K3 on the card equals its plain version (run on the card) bit for
+    bit: widths 1, 8 and 40 (two column chunks), block sizes 32 and 128,
+    tiles of 64 and 256 slots, destination blocks without edges."""
+    from repro_torch.kernels.seg_matmul import (counters, reset_counters,
+                                                seg_matmul, seg_matmul_plain)
+    rng = np.random.default_rng(3)
+    n = 700
+    dst = rng.integers(0, 300, 6000)
+    dst[dst > 250] += 300  # rows 251-550 receive nothing
+    for bs, tile_e in ((32, 64), (128, 256)):
+        seg = pops.build_tiled_segments(dst, n, bs=bs, tile_e=tile_e)
+        for f in (1, 8, 40):
+            msgs = torch.tensor(rng.standard_normal((dst.size, f))).to(
+                cuda, TDT[dtype])
+            m = pops.pad_messages(msgs, seg).contiguous()
+            args = [torch.from_numpy(np.ascontiguousarray(seg[k])).to(cuda)
+                    for k in ("blkid", "off", "valid")]
+            reset_counters()
+            y = seg_matmul(args[0], m, args[1], args[2], seg["n_blocks"],
+                           bs=bs, accum_dtype=accum)
+            assert counters.seg_matmul == 1
+            yp = seg_matmul_plain(args[0], m, args[1], args[2],
+                                  seg["n_blocks"], bs=bs, accum_dtype=accum)
+            assert y.dtype == msgs.dtype and y.shape == yp.shape
+            assert torch.equal(y, yp), (bs, f)
+            assert not y[251:550].any()
+            ptr = torch.from_numpy(pops.tile_ptr_of(
+                seg["blkid"], seg["n_blocks"])).to(cuda)
+            assert torch.equal(y, seg_matmul(
+                args[0], m, args[1], args[2], seg["n_blocks"], bs=bs,
+                accum_dtype=accum, tile_ptr=ptr))
+
+
+@pytest.mark.cuda
+def test_k3_writes_blocks_without_tiles(cuda):
+    """A blkid that skips blocks: those rows come out zero (the kernel
+    writes every output row once)."""
+    from repro_torch.kernels.seg_matmul import seg_matmul, seg_matmul_plain
+    blkid = torch.tensor([0, 0, 3], dtype=torch.int32, device=cuda)
+    rng = np.random.default_rng(4)
+    off = torch.tensor(rng.integers(0, 16, (48, 1)), dtype=torch.int32,
+                       device=cuda)
+    valid = torch.ones(48, 1, dtype=torch.int32, device=cuda)
+    msgs = torch.tensor(rng.standard_normal((48, 5)), device=cuda)
+    y = seg_matmul(blkid, msgs, off, valid, 5, bs=16)
+    assert torch.equal(y, seg_matmul_plain(blkid, msgs, off, valid, 5,
+                                           bs=16))
+    assert not y[16:48].any() and not y[64:].any() and y[:16].any()
+
+
+@pytest.mark.cuda
+def test_seg_aggregate_on_the_card_matches_the_cpu(cuda):
+    """``seg_aggregate`` on the card equals the same call on the CPU bit
+    for bit (both sum each row of a tile in slot order in f64)."""
+    from repro_torch.kernels.seg_matmul import counters, reset_counters
+    g = generate_webgraph(WebGraphSpec(900, 9000, 0.4, seed=6))
+    seg = pops.build_tiled_segments(g.dst, g.n_nodes, bs=128, tile_e=256)
+    msgs = torch.tensor(np.random.default_rng(5).standard_normal(
+        (g.n_edges, 16)), dtype=torch.float32)
+    reset_counters()
+    got = pops.seg_aggregate(msgs.to(cuda), seg, bs=128, n_nodes=g.n_nodes)
+    assert counters.seg_matmul == 1
+    want = pops.seg_aggregate(msgs, seg, bs=128, n_nodes=g.n_nodes)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["bsr", "dense"])
+def test_weight_delta_patch_on_the_card(cuda, backend):
+    """A weight-only delta on the card: the service patches its plan, every
+    served query matches a CPU service given the same deltas (1e-10 L1,
+    equal iters and statuses), and a plan of the pre-delta batch patched
+    with the post-delta batch (a fresh ``ready`` event, the device
+    permutation kept) equals a fresh plan of the post-delta batch."""
+    g = generate_webgraph(WebGraphSpec(900, 9000, 0.4, seed=4))
+    rng = np.random.default_rng(2)
+    qs = [rng.choice(g.n_nodes, size=5, replace=False) for _ in range(4)]
+    be = make_backend(backend, bsr_block=64, device=cuda)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        svc = RankService(g, RankServiceConfig(device=dev, backend=backend,
+                                               v_max=4, bsr_block=64))
+        res = svc.rank(qs)
+        fs = svc.extractor.extract_union([svc.extractor.extract(q)
+                                          for q in qs])
+        job = PipelineJob(queries=[svc.validate_roots(q) for q in qs],
+                          refresh=True)
+        if dev == "cuda":
+            plan_pre = be.plan(svc.pipeline.assemble(job).batch)
+        pick = np.random.default_rng(5).choice(fs.graph.n_edges, 20,
+                                               replace=False)
+        svc.apply_edge_delta(reweights=[
+            (int(fs.nodes[fs.graph.src[i]]), int(fs.nodes[fs.graph.dst[i]]),
+             2.0) for i in pick])
+        if dev == "cuda":
+            post = svc.pipeline.assemble(job).batch
+        res += svc.rank(qs)
+        snap = svc.telemetry_snapshot()
+        assert snap["service.delta.patched"][backend] >= 1
+        out[dev] = res
+    for r, o in zip(out["cuda"], out["cpu"]):
+        assert r.status == o.status and r.iters == o.iters
+        assert np.abs(r.authority - o.authority).sum() <= 1e-10
+        assert np.abs(r.hub - o.hub).sum() <= 1e-10
+    patched = be.patch(plan_pre, post)
+    fresh = be.plan(post)
+    torch.cuda.synchronize()
+    assert patched.ready is not None and patched.ready.query()
+    if backend == "bsr":
+        assert patched.perm_dev is plan_pre.perm_dev
+        for a, b, old in ((patched.lt, fresh.lt, plan_pre.lt),
+                          (patched.lfwd, fresh.lfwd, plan_pre.lfwd)):
+            assert a.idx is old.idx and torch.equal(a.idx, b.idx)
+            assert torch.equal(a.blocks, b.blocks)
+            assert not torch.equal(a.blocks, old.blocks)
+    else:
+        for a, b, old in ((patched.edges.by_dst, fresh.edges.by_dst,
+                           plan_pre.edges.by_dst),
+                          (patched.edges.by_src, fresh.edges.by_src,
+                           plan_pre.edges.by_src)):
+            assert torch.equal(a.gather, b.gather) and torch.equal(a.w, b.w)
+            assert not torch.equal(a.w, old.w)
+
+
+@pytest.mark.cuda
+def test_k3_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.seg_matmul import seg_matmul
+    blkid = torch.zeros(2, dtype=torch.int32, device=cuda)
+    off = torch.zeros(16, 1, dtype=torch.int32, device=cuda)
+    msgs = torch.ones(16, 3, dtype=torch.float64, device=cuda)
+    for bad in (dict(blkid=blkid.long()), dict(off=off.long()),
+                dict(msgs=msgs.half()), dict(msgs=msgs[:, ::2]),
+                dict(msgs=msgs[:15]), dict(off=off.cpu()),
+                dict(tile_ptr=torch.zeros(2, dtype=torch.int32)),
+                dict(tile_ptr=torch.zeros(2, device=cuda)),
+                dict(tile_ptr=torch.zeros(4, dtype=torch.int32,
+                                          device=cuda))):
+        args = dict(blkid=blkid, msgs=msgs, off=off, valid=off + 1,
+                    tile_ptr=None)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            seg_matmul(args["blkid"], args["msgs"], args["off"],
+                       args["valid"], 1, bs=8, tile_ptr=args["tile_ptr"])

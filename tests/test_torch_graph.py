@@ -108,10 +108,11 @@ def test_accel_weights_and_blocking_permutation_equal():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """By AST over every module of the package, and by sys.modules after
-    importing all of it in a fresh interpreter."""
+    """By AST over every module of the package and over ``chip_smoke.py``
+    (which runs where jax is absent), and by sys.modules after importing
+    all of the package in a fresh interpreter."""
     mods = []
-    for path in sorted(PORT.rglob("*.py")):
+    for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -123,6 +124,8 @@ def test_port_imports_neither_jax_nor_repro():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro"), (path, name)
+        if path.parent == ROOT:
+            continue  # a script beside the package, not one of its modules
         rel = path.relative_to(PORT.parent).with_suffix("")
         mods.append(".".join(p for p in rel.parts if p != "__init__"))
     code = ("import importlib, sys\n"

@@ -226,10 +226,9 @@ def test_validation_and_tol_clamp_match_reference(g):
 
 def test_unported_features_raise(g, monkeypatch):
     """Deferred features say so instead of doing nothing; the service runs
-    on the card unless the caller asks for the CPU."""
+    on the card unless the caller asks for the CPU. (Live edge deltas are
+    ported: ``tests/test_torch_delta.py``.)"""
     p = RankService(g, RankServiceConfig(device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.apply_edge_delta(reweights=[(0, 1, 2.0)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         p.queue()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
