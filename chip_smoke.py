@@ -10,17 +10,19 @@ Phases (any failure exits non-zero and prints no result line):
    compiler's register/spill report;
 1. K1 (``bsr_scaled_matvec``) against its plain torch version on the card,
    at the main path's shape (the britannica union of 8 queries of 50 roots:
-   n_pad 4096, bs 128, V 8) in f64, f32 and bf16, plus bs 16 and V 1; time
-   per launch beside the bound and a PyTorch yardstick (``library_ms``);
+   n_pad 4096, bs 128, V 8; the blocks per block row are printed) in f64,
+   f32 and bf16, plus bs 16 and V 1; a second run must give the same bits
+   and leave the fold counters at 0; time per launch beside the bound and
+   a PyTorch yardstick (``library_ms``);
 2. the sweep epilogue and K2 (``bsr_converge_cols``) against their plain
    versions on the card: rank_k 0 and 10, ladder off and bf16;
 2b. K3 (``seg_matmul``) through its path ``kernels.ops.seg_aggregate``
    (launch counter zeroed just before, read just after) on britannica's
    edges (bs 128, tile_e 256), seeded messages of widths 1, 8 and 64 in
    f32 and of width 8 in f64 and bf16; each case equal bit for bit to the
-   plain version on the card and within a rounding bound of the f32 oracle
-   ``seg_matmul_ref``; time per launch beside the byte bound and the
-   ``index_add_`` yardstick;
+   plain version on the card and to a second run, and within a rounding
+   bound of the f32 oracle ``seg_matmul_ref``; time per launch beside the
+   byte bound and the ``index_add_`` yardstick;
 3. the main path: ``RankService.rank`` on ``paper_dataset("britannica")``
    with the ``bsr`` backend on the card, 3 batches of 8 seeded queries of 50
    roots, a repeat batch served from cache, then a rank_k=10 service and a
@@ -38,9 +40,11 @@ Phases (any failure exits non-zero and prints no result line):
    f64, tol 1e-10, on the card against the same calls on the CPU;
 4. a ``{"kernels": [...]}`` line, then the contract's last line.
 
-It imports torch, numpy and the port only. Times come from CUDA events over
-repeated launches after a warm-up; bounds are computed from this run's
-inputs against the H100 SXM data-sheet peaks below.
+It imports torch, numpy and the port only. K1's and K3's ``ms`` is the
+kernel's device time per launch, from the profiler; ``call_ms`` (printed)
+and every other time come from CUDA events over repeated calls after a
+warm-up, so they include the host's time to launch. Bounds are computed
+from this run's inputs against the H100 SXM data-sheet peaks below.
 """
 import json
 import math
@@ -121,6 +125,31 @@ def main():
         torch.cuda.synchronize()
         return a.elapsed_time(b) / n
 
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(fn, n, kernel=None):
+        """Mean device ms of one launch of the kernel named ``kernel`` over
+        n calls of fn after a warm-up, from the profiler's device times: the
+        kernel's own time, apart from the host's time to launch it. With
+        ``kernel`` None: the device time of every kernel and copy of a call,
+        per call."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for e in prof.key_averages():
+            if kernel is None or kernel in e.key:
+                t = getattr(e, "self_device_time_total", None)
+                t = t if t is not None else e.self_cuda_time_total
+                us += t
+                count += e.count if t else 0
+        if kernel is None:
+            count = n
+        return us / 1e3 / count if count else float("nan")
+
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
@@ -142,9 +171,18 @@ def main():
     lt, lf = plan.lt.operand, plan.lfwd.operand
     n_pad, v = h0.shape
     nblk = (lt.blocks.shape[0], lf.blocks.shape[0])
+
+    def per_row(op):
+        """Blocks per block row: min/median/max, rows of one block, and the
+        five densest rows (K1's fold is as long as its densest row)."""
+        c = np.diff(op.row_ptr.cpu().numpy())
+        return (f"min {c.min()} median {int(np.median(c))} max {c.max()}, "
+                f"{int((c == 1).sum())} of {c.size} rows of one block, "
+                f"densest {sorted(c.tolist())[-5:][::-1]}")
     print(f"[main-path shape] union n_pad={n_pad} V={v} bs={plan.bs} "
           f"blocks Lt={nblk[0]} L={nblk[1]} "
-          f"({nbytes(lt.blocks) / 1e6:.1f} MB per f64 operator)", flush=True)
+          f"({nbytes(lt.blocks) / 1e6:.1f} MB per f64 operator); blocks per "
+          f"block row: Lt {per_row(lt)}; L {per_row(lf)}", flush=True)
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------- 1. K1
@@ -159,7 +197,12 @@ def main():
                      ("bfloat16", torch.bfloat16)):
         ops = [(o.blocks.to(dt), o.idx, o.row_ptr) for o in (lt, lf)]
         x, cin, mk = (t.to(dt) for t in (h0, ch, m))
-        y = K.bsr_scaled_matvec(*ops[0], x, cin, bs=plan.bs, mask=mk)
+        # one workspace for every launch, as the K2 loop keeps it
+        scr = K.Scratch(dev)
+        y = K.bsr_scaled_matvec(*ops[0], x, cin, bs=plan.bs, mask=mk,
+                                scratch=scr)
+        y2 = K.bsr_scaled_matvec(*ops[0], x, cin, bs=plan.bs, mask=mk,
+                                 scratch=scr)
         yp = K.bsr_scaled_matvec_plain(*ops[0], x, cin, bs=plan.bs, mask=mk)
         torch.cuda.synchronize()
         err = (y.double() - yp.double()).abs().max().item()
@@ -167,12 +210,17 @@ def main():
         check(err <= tol_k1[name] * scale,
               f"K1 {name}: max|y - plain| = {err:.3e} > "
               f"{tol_k1[name]:.1e} * {scale:.3e}")
+        check(torch.equal(y, y2) and not scr.cnt.any(),
+              f"K1 {name}: two runs differ or the fold counters are not 0")
         # the loop alternates Lᵀ and L (together larger than L2): time pairs
-        kern = lambda: [K.bsr_scaled_matvec(*o, x, cin, bs=plan.bs, mask=mk)  # noqa: E731
-                        for o in ops]
+        kern = lambda: [K.bsr_scaled_matvec(*o, x, cin, bs=plan.bs, mask=mk,  # noqa: E731
+                                            scratch=scr) for o in ops]
         plain = lambda: [K.bsr_scaled_matvec_plain(*o, x, cin, bs=plan.bs,  # noqa: E731
                                                    mask=mk) for o in ops]
-        t_k = ms(kern, 20) / 2
+        # call_ms: a call as the host sees it (CUDA events), launch
+        # overhead included; ms: the kernel's own device time per launch
+        t_call = ms(kern, 20) / 2
+        t_k = device_ms(kern, 20, "bsr_spmm_kernel")
         t_p = ms(plain, 3) / 2
         moved = sum(nbytes(*o) for o in ops) / 2 + nbytes(x, cin, mk, y)
         flops = 2.0 * sum(nblk) / 2 * plan.bs * plan.bs * v
@@ -192,11 +240,15 @@ def main():
             mats = [sp.to_dense() for sp in mats]
             lib_kind = "dense torch.matmul"
         t_lib = ms(lambda: [a @ xs for a in mats], 20) / 2
-        k1[name] = dict(err=err, ms=t_k, plain_ms=t_p, library_ms=t_lib,
+        t_lib_dev = device_ms(lambda: [a @ xs for a in mats], 20) / 2
+        k1[name] = dict(err=err, ms=t_k, call_ms=t_call, plain_ms=t_p,
+                        library_ms=t_lib,
                         bound_ms=max(t_bytes, t_ops),
                         bound_by="bytes" if t_bytes >= t_ops else "operations")
         print(f"[K1 {name}] max_abs_err={err:.3e} ms={t_k:.4f} "
-              f"plain_ms={t_p:.4f} library_ms={t_lib:.4f} ({lib_kind}) "
+              f"(device; call_ms={t_call:.4f}) "
+              f"plain_ms={t_p:.4f} library_ms={t_lib:.4f} (device "
+              f"{t_lib_dev:.4f}; {lib_kind}) "
               f"bound_ms={max(t_bytes, t_ops):.4f} "
               f"({moved / 1e6:.1f} MB at 3.35 TB/s) "
               f"-> {moved / (t_k * 1e-3) / 1e12:.2f} TB/s", flush=True)
@@ -352,16 +404,22 @@ def main():
           f"{len(k3_cases)} calls")
     dst_d = torch.from_numpy(g.dst).to(dev)
     k3 = {}
+    scr3 = K.Scratch(dev)  # one workspace for every call, as seg_aggregate
     for f, name in k3_cases:
         m = O.pad_messages(msgs[(f, name)], seg).contiguous()
         y = seg_matmul(blkid_d, m, off_d, valid_d, n_blocks, bs=bs3,
-                       tile_ptr=tile_ptr_d)
+                       tile_ptr=tile_ptr_d, scratch=scr3)
+        y2 = seg_matmul(blkid_d, m, off_d, valid_d, n_blocks, bs=bs3,
+                        tile_ptr=tile_ptr_d, scratch=scr3)
         yp = seg_matmul_plain(blkid_d, m, off_d, valid_d, n_blocks, bs=bs3)
         torch.cuda.synchronize()
         err = (y.double() - yp.double()).abs().max().item()
         check(torch.equal(y, yp),
               f"K3 F={f} {name}: kernel differs from the plain version "
               f"(max {err:.3e})")
+        check(torch.equal(y, y2) and not scr3.cnt.any(),
+              f"K3 F={f} {name}: two runs differ or the fold counters are "
+              "not 0")
         check(torch.equal(y[:g.n_nodes], agg[(f, name)]),
               f"K3 F={f} {name}: seg_aggregate differs from seg_matmul")
         # the f32 oracle sums each row in another order: both stay within
@@ -377,27 +435,34 @@ def main():
         check(bool((gap <= bound).all()),
               f"K3 F={f} {name}: off the oracle by more than its rounding "
               f"bound ({(gap - bound).max().item():.3e} over)")
-        t_k = ms(lambda: seg_matmul(blkid_d, m, off_d, valid_d, n_blocks,
-                                    bs=bs3, tile_ptr=tile_ptr_d), 20)
+        def kern():
+            return seg_matmul(blkid_d, m, off_d, valid_d, n_blocks, bs=bs3,
+                              tile_ptr=tile_ptr_d, scratch=scr3)
+        t_call = ms(kern, 20)
+        t_k = device_ms(kern, 20, "seg_matmul_kernel")
         t_p = ms(lambda: seg_matmul_plain(blkid_d, m, off_d, valid_d,
                                           n_blocks, bs=bs3), 2)
         # the yardstick adds the E real messages, unpadded, into their rows
         raw = msgs[(f, name)]
         zeros = torch.zeros((n_blocks * bs3, f), dtype=m.dtype, device=dev)
         t_lib = ms(lambda: zeros.clone().index_add_(0, dst_d, raw), 20)
+        t_lib_dev = device_ms(
+            lambda: zeros.clone().index_add_(0, dst_d, raw), 20)
         # the kernel reads off/valid of every slot and the message row of
         # each valid slot only (padded slots are skipped), writes y once
         moved = (g.n_edges * f * m.element_size() + 8 * e_pad
                  + nbytes(y))
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
         t_ops = g.n_edges * f / PEAK_FLOPS["float32"] * 1e3
-        k3[(f, name)] = dict(err=err, ms=t_k, plain_ms=t_p,
+        k3[(f, name)] = dict(err=err, ms=t_k, call_ms=t_call, plain_ms=t_p,
                              library_ms=t_lib, bound_ms=max(t_bytes, t_ops),
                              bound_by="bytes" if t_bytes >= t_ops
                              else "operations")
         print(f"[K3 F={f} {name}] max_abs_err={err:.3e} (bit-equal) "
               f"oracle gap {gap.max().item():.3e} ms={t_k:.4f} "
-              f"plain_ms={t_p:.4f} library_ms={t_lib:.4f} (index_add_) "
+              f"(device; call_ms={t_call:.4f}) "
+              f"plain_ms={t_p:.4f} library_ms={t_lib:.4f} (device "
+              f"{t_lib_dev:.4f}; clone + index_add_) "
               f"bound_ms={max(t_bytes, t_ops):.4f} ({moved / 1e6:.1f} MB "
               f"at 3.35 TB/s) -> {moved / (t_k * 1e-3) / 1e12:.2f} TB/s",
               flush=True)
@@ -457,7 +522,6 @@ def main():
     # device busy share of the same run on a fresh service, from the
     # profiler's device times (tracing slows the host a little, so the idle
     # share it implies is an upper bound)
-    from torch.profiler import ProfilerActivity, profile
     fresh = RankService(g, RankServiceConfig(device="cuda", **cfg))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

@@ -6,20 +6,23 @@ bsr_spmm: block-sparse adjacency x multi-vector with fused Ca/Ch scaling
 seg_matmul: tiled segment-sum of gathered edge messages (K3), behind
           ``ops.seg_aggregate``.
 The kernels build at first use from ``csrc/`` (``kernels.build``); on CPU
-tensors every wrapper runs its plain version.
+tensors every wrapper runs its plain version. K1 and K3 compute their
+pieces (blocks, tiles) in parallel and fold them in order through a
+``Scratch`` (workspace and fold counters).
 """
+from .build import Scratch
 from .bsr_spmm import (BsrOperand, LoopState, bsr_converge_cols,
                        bsr_converge_cols_plain, bsr_scaled_matvec,
                        bsr_scaled_matvec_plain, counters, reset_counters,
                        sweep_certificate, sweep_certificate_plain,
                        sweep_epilogue, sweep_epilogue_plain)
-from .ops import (DeviceBSR, bsr_converge, bsr_matvec, bsr_revalue,
+from .ops import (DeviceBSR, DeviceSegments, bsr_converge, bsr_matvec, bsr_revalue,
                   build_tiled_segments, classify_exit, pad_empty_rows,
                   pad_messages, seg_aggregate)
 from .seg_matmul import seg_matmul, seg_matmul_plain
 
 __all__ = [
-    "BsrOperand", "LoopState", "bsr_converge_cols", "bsr_converge_cols_plain",
+    "BsrOperand", "LoopState", "Scratch", "DeviceSegments", "bsr_converge_cols", "bsr_converge_cols_plain",
     "bsr_scaled_matvec", "bsr_scaled_matvec_plain", "counters",
     "reset_counters", "sweep_certificate", "sweep_certificate_plain",
     "sweep_epilogue", "sweep_epilogue_plain", "DeviceBSR", "bsr_converge",

@@ -6,7 +6,9 @@ PyTorch version of the same signature beside it:
 
 * ``bsr_scaled_matvec`` (K1, replaces the Pallas kernel ``_bsr_kernel``):
   y = (A_bsr @ (x ⊙ cin)) ⊙ mask, launched as the CUDA kernel
-  ``csrc/bsr_spmm.cu::bsr_spmm_kernel``.
+  ``csrc/bsr_spmm.cu::bsr_spmm_kernel``: one CTA per (block, slice of
+  ``K1_ROWS`` rows) writes the block's rounded product to a workspace, and
+  the last CTA of each block row adds them in idx order (``Scratch``).
 * ``sweep_epilogue`` / ``sweep_certificate``: the per-sweep epilogue of the
   loop (normalize, residual, rank stability, conv, stop flag) and the
   final certificate, as ``csrc/bsr_spmm.cu::sweep_epilogue_kernel``.
@@ -42,11 +44,12 @@ import torch
 
 from ..runtime import tol_in, torch_dtype
 from . import build as _build
-from .build import counters, reset_counters  # noqa: F401
+from .build import Scratch, counters, reset_counters  # noqa: F401
 
 _DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
 BLOCK_SIZES = (16, 32, 64, 128)
 V_GROUP = 16   # widest column group one K1 launch takes
+K1_ROWS = 32   # rows of a block one K1 CTA takes (bs 16: all 16)
 CHUNK = 8      # sweeps enqueued between two reads of the stop flag
 _EPS = 1e-30
 
@@ -70,8 +73,8 @@ def natural_accum(dtype) -> torch.dtype:
 
 def _declare(lib):
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.bsr_spmm_launch.argtypes = [i, i, i, p, p, p, i, p, p, i, p, p, i, i,
-                                    i, p, p]
+    lib.bsr_spmm_launch.argtypes = [i, i, i, p, p, p, i, i, p, p, i, p, p, i,
+                                    i, i, p, p, p, p]
     lib.bsr_spmm_launch.restype = i
     lib.sweep_epilogue_launch.argtypes = [i, p, p, p, i, i, d, i, i, p, p, p,
                                           p, p, p, i, i, p]
@@ -148,10 +151,32 @@ def _l1(x):
         natural_accum(x.dtype)).to(x.dtype)
 
 
+def _vt(v: int) -> int:
+    """The kernel's column width for v columns: v rounded up to a power of
+    two, at most ``V_GROUP``."""
+    return 1 << (min(v, V_GROUP) - 1).bit_length()
+
+
+def k1_scratch_sizes(nblocks: int, n_brows: int, bs: int, v: int,
+                     itemsize: int) -> tuple:
+    """(workspace bytes, fold counters) of a K1 launch: every block's
+    product (nblocks, vt, bs) in y's dtype, and one counter per block row
+    and slice of ``K1_ROWS`` rows."""
+    return (nblocks * bs * _vt(v) * itemsize,
+            n_brows * (bs // min(bs, K1_ROWS)))
+
+
+def _reserve_k1(scratch: Scratch, ops, bs: int, v: int) -> Scratch:
+    sizes = [k1_scratch_sizes(o.blocks.shape[0], o.row_ptr.shape[0] - 1, bs,
+                              v, o.blocks.element_size()) for o in ops]
+    return scratch.reserve(max(w for w, _ in sizes), max(c for _, c in sizes))
+
+
 def _launch_spmm(op: BsrOperand, x, cin, bs: int, accum_dtype, mask, out,
-                 active=None):
+                 active=None, scratch: Optional[Scratch] = None):
     """Validate and launch K1 into ``out``; V wider than ``V_GROUP`` runs as
-    column groups, one launch each."""
+    column groups, one launch each, one after another on one ``scratch``
+    (made here when None)."""
     blocks, idx, row_ptr = op
     dev = x.device
     dt = x.dtype
@@ -182,15 +207,16 @@ def _launch_spmm(op: BsrOperand, x, cin, bs: int, accum_dtype, mask, out,
     for t in (mask, out):
         _check(t is None or tuple(t.shape) == (n_pad, v),
                f"mask/out must be ({n_pad}, {v})")
+    scratch = _reserve_k1(Scratch.on(dev, scratch), [op], bs, v)
     lib = _lib()
     stream = _stream(dev)
     for col0 in range(0, v, V_GROUP):
         vg = min(V_GROUP, v - col0)
-        vt = 1 << (vg - 1).bit_length()
         err = lib.bsr_spmm_launch(
-            _DTYPE_CODE[dt], bs, vt, blocks.data_ptr(), idx.data_ptr(),
-            row_ptr.data_ptr(), n_brows, x.data_ptr(), cin.data_ptr(),
-            cin.shape[1], _ptr(mask), out.data_ptr(), v, col0, vg,
+            _DTYPE_CODE[dt], bs, _vt(vg), blocks.data_ptr(), idx.data_ptr(),
+            row_ptr.data_ptr(), nblocks, n_brows, x.data_ptr(),
+            cin.data_ptr(), cin.shape[1], _ptr(mask), out.data_ptr(), v,
+            col0, vg, scratch.ws.data_ptr(), scratch.cnt.data_ptr(),
             _ptr(active), stream)
         counters.bsr_spmm += 1
         _raise_on(err, "bsr_spmm")
@@ -198,21 +224,24 @@ def _launch_spmm(op: BsrOperand, x, cin, bs: int, accum_dtype, mask, out,
 
 
 def bsr_scaled_matvec(blocks, idx, row_ptr, x, cin, *, bs: int,
-                      accum_dtype=None, mask=None):
+                      accum_dtype=None, mask=None,
+                      scratch: Optional[Scratch] = None):
     """y = (A_bsr @ (x ⊙ cin)) ⊙ mask over the nonzero blocks (K1).
 
     blocks: (nblocks, bs, bs); idx: (nblocks, 2) int32 (brow, bcol) sorted
     by brow; row_ptr: (n_pad/bs + 1,) int32; x: (n_pad, V); cin: (n_pad, 1)
     shared diagonal or (n_pad, V) per-column diagonals; mask: None or
     (n_pad, V). Returns (n_pad, V) in x's dtype. CPU tensors run
-    ``bsr_scaled_matvec_plain``; CUDA tensors launch the kernel.
+    ``bsr_scaled_matvec_plain``; CUDA tensors launch the kernel, with
+    ``scratch`` (a ``Scratch`` on x's device, grown as needed) as its
+    workspace, or a new one when None.
     """
     if not x.is_cuda:
         return bsr_scaled_matvec_plain(blocks, idx, row_ptr, x, cin, bs=bs,
                                        accum_dtype=accum_dtype, mask=mask)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     return _launch_spmm(BsrOperand(blocks, idx, row_ptr), x, cin, bs,
-                        accum_dtype, mask, out)
+                        accum_dtype, mask, out, scratch=scratch)
 
 
 # -------------------------------------------------------- sweep epilogue
@@ -402,9 +431,10 @@ def bsr_converge_cols_plain(lt: BsrOperand, lf: BsrOperand, h0, ca, ch,
 
 
 def _spmm_plain_into(op: BsrOperand, x, cin, bs, accum_dtype, mask, out,
-                     active=None):
+                     active=None, scratch=None):
     """``_launch_spmm``'s plain twin: K1 into ``out``, skipped while the
-    flag ``active[0]`` is 0 (the CPU rehearsal of the device loop)."""
+    flag ``active[0]`` is 0 (the CPU rehearsal of the device loop); it
+    needs no ``scratch``."""
     if active is None or int(active[0]):
         out.copy_(bsr_scaled_matvec_plain(*op, x, cin, bs=bs,
                                           accum_dtype=accum_dtype, mask=mask))
@@ -427,10 +457,14 @@ def _converge_chunked(lt, lf, h0, ca, ch, mask, tol, bs, accum, max_iter,
     """The device loop: per sweep K1, K1 and the epilogue, each predicated
     on the device flag ``ctl[0]``, enqueued ``CHUNK`` sweeps at a time; the
     host reads the flag once per chunk. ``ops`` are the kernels, or their
-    plain versions to rehearse the same control flow on the CPU."""
+    plain versions to rehearse the same control flow on the CPU. K1's
+    workspace and counters are made once, for every operator of the call."""
     spmm, epilogue, certificate = ops
     counters.bsr_converge += 1
     ctl = torch.zeros(3, dtype=torch.int32, device=h0.device)
+    scr = _reserve_k1(Scratch(h0.device),
+                      [o for o in (lt, lf, lt_lo, lf_lo) if o is not None],
+                      bs, h0.shape[1])
 
     def loop(lt_op, lf_op, h, cav, chv, mv, stop_tol, acc):
         h = h.contiguous().clone()  # updated in place by the epilogue
@@ -439,8 +473,8 @@ def _converge_chunked(lt, lf, h0, ca, ch, mask, tol, bs, accum, max_iter,
         st = LoopState.start(ctl, h.shape[1], k_eff, max_iter)
         while True:
             for _ in range(CHUNK):
-                spmm(lt_op, h, chv, bs, acc, mv, a, active=ctl)
-                spmm(lf_op, a, cav, bs, acc, mv, hr, active=ctl)
+                spmm(lt_op, h, chv, bs, acc, mv, a, active=ctl, scratch=scr)
+                spmm(lf_op, a, cav, bs, acc, mv, hr, active=ctl, scratch=scr)
                 epilogue(hr, h, a, st, tol=stop_tol,
                          stable_sweeps=stable_sweeps, max_iter=max_iter)
             counters.host_syncs += 1
@@ -456,8 +490,8 @@ def _converge_chunked(lt, lf, h0, ca, ch, mask, tol, bs, accum, max_iter,
     h, conv = loop(lt, lf, h0, ca, ch, mask, tol, accum)
     conv = torch.where(conv < 0, ctl[1], conv)
     # certificate: one more full-precision sweep from the published h
-    a = spmm(lt, h, ch, bs, accum, mask, torch.empty_like(h))
-    hr = spmm(lf, a, ca, bs, accum, mask, torch.empty_like(h))
+    a = spmm(lt, h, ch, bs, accum, mask, torch.empty_like(h), scratch=scr)
+    hr = spmm(lf, a, ca, bs, accum, mask, torch.empty_like(h), scratch=scr)
     res = certificate(hr, h, a)
     return h, a, conv, res
 

@@ -7,7 +7,8 @@ over the source and the flags, so an edited source never loads a stale
 library. ``build_all`` starts one ``nvcc`` per source at once. The
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills per
 kernel) is kept beside each library as ``<name>_<hash>.log``.
-``counters`` counts every wrapper's kernel launches.
+``counters`` counts every wrapper's kernel launches; ``Scratch`` holds a
+kernel's workspace and fold counters between launches.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bsr_spmm", "seg_matmul")
@@ -56,6 +59,36 @@ counters = Counters()
 
 def reset_counters():
     counters.reset()
+
+
+class Scratch:
+    """The device memory a parallel-then-fold kernel (K1, K3) needs beside
+    its inputs: ``ws``, bytes for every piece's rounded contribution, and
+    ``cnt``, int32 fold counters that are 0 between launches (the kernel
+    resets each counter it used). One Scratch serves any number of launches
+    on one stream; ``reserve`` grows it, and never shrinks it."""
+
+    def __init__(self, device):
+        self.ws = torch.empty(0, dtype=torch.uint8, device=device)
+        self.cnt = torch.zeros(0, dtype=torch.int32, device=device)
+
+    @staticmethod
+    def on(device, scratch: "Scratch | None" = None) -> "Scratch":
+        """``scratch``, checked to lie on ``device``, or a new one there."""
+        if scratch is None:
+            return Scratch(device)
+        if scratch.ws.device != torch.device(device):
+            raise ValueError(f"scratch on {scratch.ws.device}, not {device}")
+        return scratch
+
+    def reserve(self, ws_bytes: int, n_counters: int) -> "Scratch":
+        if self.ws.numel() < ws_bytes:
+            self.ws = torch.empty(ws_bytes, dtype=torch.uint8,
+                                  device=self.ws.device)
+        if self.cnt.numel() < n_counters:
+            self.cnt = torch.zeros(n_counters, dtype=torch.int32,
+                                   device=self.cnt.device)
+        return self
 
 
 def _nvcc() -> str:

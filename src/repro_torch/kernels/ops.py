@@ -4,6 +4,7 @@ ROADMAP Queue 1 item 9)."""
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -12,6 +13,7 @@ import torch
 from ..graph.structure import BSR, Graph, to_bsr
 from ..runtime import resolve_device, torch_dtype
 from .bsr_spmm import BsrOperand, bsr_converge_cols, bsr_scaled_matvec
+from .build import Scratch
 from .seg_matmul import seg_matmul
 
 
@@ -263,24 +265,66 @@ def build_tiled_segments(dst: np.ndarray, n_nodes: int, bs: int = 128,
             "n_blocks": n_blocks, "e_pad": e_pad}
 
 
+@dataclasses.dataclass(frozen=True)
+class DeviceSegments:
+    """A ``build_tiled_segments`` layout on one device, as K3 and
+    ``pad_messages`` read it: the gather (perm, padding slots at 0), blkid,
+    off, valid and tile_ptr (made once on the host), plus the kernel's
+    ``Scratch``. ``of`` keeps one per layout and device, so a
+    message-passing loop ships its index arrays once, as ``DeviceBSR``
+    does for K1."""
+
+    gather: torch.Tensor    # (E_pad,) int64 slot -> edge, 0 for padding
+    blkid: torch.Tensor     # (n_tiles,) int32
+    off: torch.Tensor       # (E_pad, 1) int32
+    valid: torch.Tensor     # (E_pad, 1) int32
+    tile_ptr: torch.Tensor  # (n_blocks + 1,) int32
+    n_blocks: int
+    scratch: Scratch
+
+    @staticmethod
+    def of(seg: dict, device) -> "DeviceSegments":
+        """The cached device copy of ``seg`` (keyed by its ``perm`` array,
+        dropped when that array is)."""
+        dev = torch.device(device)
+        key = id(seg["perm"])
+        ref, per_dev = _SEG_CACHE.get(key, (None, None))
+        if ref is None or ref() is not seg["perm"]:
+            per_dev = {}
+            _SEG_CACHE[key] = (weakref.ref(seg["perm"],
+                                           lambda _r: _SEG_CACHE.pop(key, None)),
+                               per_dev)
+        ds = per_dev.get(dev)
+        if ds is None:
+            as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+                a, np.int32)).to(dev)
+            ds = DeviceSegments(
+                torch.from_numpy(np.maximum(seg["perm"], 0)).to(dev),
+                as_dev(seg["blkid"]), as_dev(seg["off"]),
+                as_dev(seg["valid"]),
+                as_dev(tile_ptr_of(seg["blkid"], seg["n_blocks"])),
+                int(seg["n_blocks"]), Scratch(dev))
+            per_dev[dev] = ds
+        return ds
+
+
+# id(seg["perm"]) -> (weak reference to that array, {device: DeviceSegments})
+_SEG_CACHE: dict = {}
+
+
 def pad_messages(msgs, seg):
     """Arrange per-edge messages (E, F) into the padded tile layout
     (E_pad, F), on the messages' device; padded slots are zero."""
-    dev = msgs.device
-    perm = torch.from_numpy(np.maximum(seg["perm"], 0)).to(dev)
-    out = msgs.index_select(0, perm)
-    return out * torch.from_numpy(seg["valid"]).to(dev, msgs.dtype)
+    ds = DeviceSegments.of(seg, msgs.device)
+    return msgs.index_select(0, ds.gather) * ds.valid
 
 
 def seg_aggregate(msgs, seg, *, bs: int = 128, n_nodes: int):
     """Full segment-sum: messages (E, F) -> node aggregates (n_nodes, F),
-    through K3 (``seg_matmul``) on the messages' device."""
-    dev = msgs.device
+    through K3 (``seg_matmul``) on the messages' device; the layout's
+    device arrays and K3's workspace are made at its first call there."""
     m = pad_messages(msgs, seg)
-    as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
-        a, np.int32)).to(dev)
-    y = seg_matmul(as_dev(seg["blkid"]), m.contiguous(), as_dev(seg["off"]),
-                   as_dev(seg["valid"]), seg["n_blocks"], bs=bs,
-                   tile_ptr=as_dev(tile_ptr_of(seg["blkid"],
-                                               seg["n_blocks"])))
+    ds = DeviceSegments.of(seg, msgs.device)
+    y = seg_matmul(ds.blkid, m.contiguous(), ds.off, ds.valid, ds.n_blocks,
+                   bs=bs, tile_ptr=ds.tile_ptr, scratch=ds.scratch)
     return y[:n_nodes]

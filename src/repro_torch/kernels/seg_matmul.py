@@ -11,8 +11,10 @@ keep the edges' input order; they are not sorted by row.
 ``seg_matmul`` (replaces the Pallas kernel ``_seg_kernel``) launches
 ``csrc/seg_matmul.cu::seg_matmul_kernel`` for CUDA tensors and runs
 ``seg_matmul_plain`` for CPU tensors; on the card it launches its kernel
-or raises. ``counters.seg_matmul`` (``kernels.build``) counts kernel
-launches.
+or raises. The kernel runs one CTA per (tile, chunk of ``SEG_FC``
+columns), writes each tile's rounded contribution to a workspace, and
+the last CTA of each block adds them in tile order (``Scratch``).
+``counters.seg_matmul`` (``kernels.build``) counts kernel launches.
 
 Rounding follows the Pallas kernel: each message is cast to
 ``accum_dtype`` (f32 by default, also for f64 messages) and multiplied by
@@ -36,15 +38,17 @@ import torch
 
 from ..runtime import torch_dtype
 from . import build as _build
-from .build import counters, reset_counters  # noqa: F401
+from .build import Scratch, counters, reset_counters  # noqa: F401
 
 _DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
 _ACCUM_CODE = {torch.float64: 0, torch.float32: 1}
+SEG_FC = 32  # widest column chunk of one K3 CTA (K3_FC)
 
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.seg_matmul_launch.argtypes = [i, i, i, i, i, i, p, p, p, p, p, p]
+    lib.seg_matmul_launch.argtypes = [i, i, i, i, i, i, i, p, p, p, p, p, p,
+                                      p, p, p]
     lib.seg_matmul_launch.restype = i
 
 
@@ -65,6 +69,14 @@ def _tile_e(blkid, msgs) -> int:
         raise ValueError(f"{e_pad} message rows do not split into "
                          f"{n_tiles} tiles")
     return e_pad // n_tiles
+
+
+def seg_scratch_sizes(n_tiles: int, n_blocks: int, bs: int, f: int,
+                      itemsize: int) -> tuple:
+    """(workspace bytes, fold counters) of a K3 launch: every tile's
+    contribution (n_tiles, bs, F) in the messages' dtype, and one counter
+    per block and chunk of ``SEG_FC`` columns."""
+    return n_tiles * bs * f * itemsize, n_blocks * -(-f // SEG_FC)
 
 
 def seg_matmul_plain(blkid, msgs, off, valid, n_blocks: int, *,
@@ -109,7 +121,7 @@ def seg_matmul_plain(blkid, msgs, off, valid, n_blocks: int, *,
 
 
 def _launch(blkid, msgs, off, valid, n_blocks: int, bs: int, acc,
-            tile_ptr=None):
+            tile_ptr=None, scratch=None):
     dev = msgs.device
     if msgs.dtype not in _DTYPE_CODE:
         raise ValueError(f"K3 takes f64, f32 or bf16 messages, not "
@@ -139,11 +151,15 @@ def _launch(blkid, msgs, off, valid, n_blocks: int, bs: int, acc,
           or tuple(tile_ptr.shape) != (n_blocks + 1,)):
         raise ValueError(f"tile_ptr must be a contiguous ({n_blocks + 1},) "
                          f"int32 tensor on {dev}")
+    n_tiles = blkid.shape[0]
+    scratch = Scratch.on(dev, scratch).reserve(*seg_scratch_sizes(
+        n_tiles, n_blocks, bs, f, msgs.element_size()))
     lib = _build.load("seg_matmul", _declare)
     err = lib.seg_matmul_launch(
-        _DTYPE_CODE[msgs.dtype], _ACCUM_CODE[acc], bs, tile_e, f, n_blocks,
-        tile_ptr.data_ptr(), msgs.data_ptr(), off.data_ptr(),
-        valid.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[msgs.dtype], _ACCUM_CODE[acc], bs, tile_e, f, n_tiles,
+        n_blocks, blkid.data_ptr(), tile_ptr.data_ptr(), msgs.data_ptr(),
+        off.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        scratch.ws.data_ptr(), scratch.cnt.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     counters.seg_matmul += 1
     if err != 0:
@@ -152,7 +168,7 @@ def _launch(blkid, msgs, off, valid, n_blocks: int, bs: int, acc,
 
 
 def seg_matmul(blkid, msgs, off, valid, n_blocks: int, *, bs: int = 128,
-               accum_dtype="float32", tile_ptr=None):
+               accum_dtype="float32", tile_ptr=None, scratch=None):
     """Segment-sum messages into (n_blocks*bs, F) (K3).
 
     blkid: (n_tiles,) int32 destination block per edge tile (sorted).
@@ -162,6 +178,8 @@ def seg_matmul(blkid, msgs, off, valid, n_blocks: int, *, bs: int = 128,
     tile_ptr: optional (n_blocks+1,) int32 on msgs' device, block b's
         tiles at tile_ptr[b]:tile_ptr[b+1] (``ops.tile_ptr_of``); made
         from blkid on the device when absent.
+    scratch: optional ``Scratch`` on msgs' device, the kernel's workspace
+        and fold counters (grown as needed); a new one when None.
 
     CPU tensors run ``seg_matmul_plain``; CUDA tensors launch the kernel.
     """
@@ -169,4 +187,5 @@ def seg_matmul(blkid, msgs, off, valid, n_blocks: int, *, bs: int = 128,
     if not msgs.is_cuda:
         return seg_matmul_plain(blkid, msgs, off, valid, n_blocks, bs=bs,
                                 accum_dtype=acc)
-    return _launch(blkid, msgs, off, valid, n_blocks, bs, acc, tile_ptr)
+    return _launch(blkid, msgs, off, valid, n_blocks, bs, acc, tile_ptr,
+                   scratch)

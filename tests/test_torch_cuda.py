@@ -322,3 +322,176 @@ def test_k3_rejects_what_it_does_not_take(cuda):
         with pytest.raises(ValueError):
             seg_matmul(args["blkid"], args["msgs"], args["off"],
                        args["valid"], 1, bs=8, tile_ptr=args["tile_ptr"])
+
+
+# ------------------------------------------- the parallel-then-fold schedules
+
+
+def k3_layout(name, rng):
+    """(dst, n_nodes, bs, tile_e) of one K3 layout. heavy: block 1 owns 45
+    tiles, its last one part padding; one_row: three tiles whose 256 slots
+    all hit row 5; distinct: tiles of 128 slots that each hit all 128 rows
+    once; straddle: row 7's slots 250-261 cross the first tile boundary."""
+    if name == "heavy":
+        dst = np.concatenate([rng.integers(0, 128, 100),
+                              128 + rng.integers(0, 128, 45 * 256 - 7),
+                              256 + rng.integers(0, 128, 300)])
+        return dst, 3 * 128, 128, 256
+    if name == "one_row":
+        dst = np.concatenate([np.full(3 * 256, 5), 128 + rng.integers(
+            0, 128, 400)])
+        return dst, 2 * 128, 128, 256
+    if name == "distinct":
+        dst = np.concatenate([b * 128 + rng.permutation(128)
+                              for b in (0, 0, 1, 2, 2)])
+        return dst, 3 * 128, 128, 128
+    dst = np.concatenate([rng.integers(0, 128, 250), np.full(12, 7),
+                          rng.integers(0, 128, 400)])
+    return dst, 128, 128, 256
+
+
+def k3_messages(rng, e, f):
+    """Mixed magnitudes (1e-8 to 1e8) with a tenth of the values -0.0."""
+    m = rng.standard_normal((e, f)) * 10.0 ** rng.integers(-8, 9, (e, f))
+    m[rng.random((e, f)) < 0.1] = -0.0
+    return m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 33, 64])
+@pytest.mark.parametrize("layout", ["heavy", "one_row", "distinct",
+                                    "straddle"])
+def test_k3_schedule_layouts_bit_equal(cuda, layout, f):
+    """K3's tiles run in parallel and the last CTA of each block folds
+    them in tile order: bit-equal to the plain version in every dtype,
+    the same bits on a second run, and the fold counters back at 0."""
+    from repro_torch.kernels.seg_matmul import seg_matmul, seg_matmul_plain
+    rng = np.random.default_rng(f)
+    dst, n, bs, tile_e = k3_layout(layout, rng)
+    seg = pops.build_tiled_segments(dst, n, bs=bs, tile_e=tile_e)
+    ds = pops.DeviceSegments.of(seg, cuda)
+    host = k3_messages(rng, dst.size, f)
+    for dtype in ("float64", "float32", "bfloat16"):
+        m = pops.pad_messages(torch.tensor(host).to(cuda, TDT[dtype]),
+                              seg).contiguous()
+        args = (ds.blkid, m, ds.off, ds.valid, ds.n_blocks)
+        scr = K.Scratch(cuda)
+        y = seg_matmul(*args, bs=bs, tile_ptr=ds.tile_ptr, scratch=scr)
+        y2 = seg_matmul(*args, bs=bs, tile_ptr=ds.tile_ptr, scratch=scr)
+        yp = seg_matmul_plain(*args, bs=bs)
+        assert torch.equal(y, yp), dtype
+        assert torch.equal(y, y2), dtype
+        assert not scr.cnt.any()
+
+
+@pytest.mark.cuda
+def test_k3_scratch_reused_across_calls(cuda):
+    """One Scratch serves two layouts and widths one after the other: both
+    results bit-equal to the plain version, the workspace not reallocated
+    for the smaller call, the counters at 0 after each."""
+    from repro_torch.kernels.seg_matmul import seg_matmul, seg_matmul_plain
+    rng = np.random.default_rng(9)
+    scr = K.Scratch(cuda)
+    ptrs = []
+    for layout, f in (("heavy", 64), ("straddle", 33)):
+        dst, n, bs, tile_e = k3_layout(layout, rng)
+        seg = pops.build_tiled_segments(dst, n, bs=bs, tile_e=tile_e)
+        ds = pops.DeviceSegments.of(seg, cuda)
+        m = pops.pad_messages(torch.tensor(k3_messages(rng, dst.size, f),
+                                           device=cuda).float(), seg)
+        args = (ds.blkid, m.contiguous(), ds.off, ds.valid, ds.n_blocks)
+        y = seg_matmul(*args, bs=bs, tile_ptr=ds.tile_ptr, scratch=scr)
+        assert torch.equal(y, seg_matmul_plain(*args, bs=bs)), layout
+        assert not scr.cnt.any()
+        ptrs.append(scr.ws.data_ptr())
+    assert ptrs[0] == ptrs[1]
+
+
+def k1_dense_row_operator(bs, dtype, device, rng):
+    """8 block rows of bs: row 2 holds every block column, rows 5 and 7
+    hold none, the others one block each."""
+    idx = [(r, (3 * r) % 8) for r in (0, 1)] + [(2, c) for c in range(8)] \
+        + [(r, (3 * r) % 8) for r in (3, 4, 6)]
+    idx = np.array(idx, np.int32)
+    blocks = rng.standard_normal((len(idx), bs, bs)) * (rng.random(
+        (len(idx), bs, bs)) < 0.3)
+    row_ptr = pops.row_ptr_of(idx, 8)
+    return (torch.tensor(blocks).to(device, TDT[dtype]),
+            torch.from_numpy(idx).to(device),
+            torch.from_numpy(row_ptr).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+def test_k1_dense_block_row(cuda, dtype):
+    """A dense block row beside rows of one block and rows of none, V 1, 3,
+    8, 16 and 17 (two column groups): within K1's tolerance of the plain
+    version, the same bits on a second run, counters back at 0."""
+    rng = np.random.default_rng(21)
+    bs = 64
+    op = k1_dense_row_operator(bs, dtype, cuda, rng)
+    tol = {"float64": 1e-13, "float32": 2.0 ** -20, "bfloat16": 2.0 ** -6}
+    for v in (1, 3, 8, 16, 17):
+        x = torch.tensor(rng.random((8 * bs, v))).to(cuda, TDT[dtype])
+        c = torch.tensor(rng.random((8 * bs, v))).to(cuda, TDT[dtype])
+        mk = torch.tensor(rng.random((8 * bs, v)) > 0.2).to(cuda, TDT[dtype])
+        scr = K.Scratch(cuda)
+        y = K.bsr_scaled_matvec(*op, x, c, bs=bs, mask=mk, scratch=scr)
+        y2 = K.bsr_scaled_matvec(*op, x, c, bs=bs, mask=mk, scratch=scr)
+        yp = K.bsr_scaled_matvec_plain(*op, x, c, bs=bs, mask=mk)
+        err = (y.double() - yp.double()).abs().max().item()
+        assert err <= tol[dtype] * yp.double().abs().max().item(), (v, err)
+        assert torch.equal(y, y2), v
+        assert not scr.cnt.any()
+        assert not y[5 * bs:6 * bs].any() and not y[7 * bs:].any()
+
+
+@pytest.mark.cuda
+def test_k1_inactive_flag_leaves_y_and_counters(cuda):
+    """With the device flag at 0 every CTA returns at once: y keeps what it
+    held and the fold counters stay 0; with the flag at 1 it computes."""
+    rng = np.random.default_rng(22)
+    op = K.BsrOperand(*k1_dense_row_operator(32, "float64", cuda, rng))
+    x = torch.tensor(rng.random((256, 8)), device=cuda)
+    c = torch.tensor(rng.random((256, 1)), device=cuda)
+    scr = K.Scratch(cuda)
+    out = torch.full_like(x, 7.0)
+    K._launch_spmm(op, x, c, 32, None, None, out,
+                   active=torch.zeros(1, dtype=torch.int32, device=cuda),
+                   scratch=scr)
+    assert (out == 7.0).all() and not scr.cnt.any()
+    K._launch_spmm(op, x, c, 32, None, None, out,
+                   active=torch.ones(1, dtype=torch.int32, device=cuda),
+                   scratch=scr)
+    want = K.bsr_scaled_matvec_plain(*op, x, c, bs=32)
+    assert (out - want).abs().max().item() <= 1e-13 * want.abs().max().item()
+    assert not scr.cnt.any()
+
+
+@pytest.mark.cuda
+def test_k2_long_run_reuses_one_scratch(cuda, monkeypatch):
+    """24 sweeps (an unreachable tolerance) of the device loop: one Scratch
+    made for the whole call, conv equal and h, a within 1e-10 L1 of the
+    plain loop, the same bits on a second run."""
+    made = []
+
+    class Counting(K.Scratch):
+        def __init__(self, device):
+            made.append(device)
+            super().__init__(device)
+
+    monkeypatch.setattr(K, "Scratch", Counting)
+    g, vecs = loop_inputs(8, 300, 5)
+    args = [torch.tensor(x, device=cuda).contiguous() for x in vecs]
+    ops = [pops.DeviceBSR.build(g, 32, transpose=t, dtype="float64",
+                                device=cuda).operand for t in (True, False)]
+    kw = dict(bs=32, max_iter=24)
+    got = K.bsr_converge_cols(*ops, *args, 1e-300, **kw)
+    assert len(made) == 1
+    again = K.bsr_converge_cols(*ops, *args, 1e-300, **kw)
+    want = K.bsr_converge_cols_plain(*ops, *args, 1e-300, **kw)
+    assert (got[2] == 24).all() and torch.equal(got[2], want[2])
+    assert (got[0] - want[0]).abs().sum(0).max().item() <= 1e-10
+    assert (got[1] - want[1]).abs().sum(0).max().item() <= 1e-10
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)

@@ -109,10 +109,12 @@ def test_accel_weights_and_blocking_permutation_equal():
 
 def test_port_imports_neither_jax_nor_repro():
     """By AST over every module of the package and over ``chip_smoke.py``
-    (which runs where jax is absent), and by sys.modules after importing
-    all of the package in a fresh interpreter."""
+    and ``chip_ablation.py`` (which run where jax is absent), and by
+    sys.modules after importing all of the package in a fresh
+    interpreter."""
     mods = []
-    for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                              ROOT / "chip_ablation.py"]:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

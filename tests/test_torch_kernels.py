@@ -106,6 +106,78 @@ def test_k1_plain_bf16_bit_exact_without_excess_precision(oracle):
         assert np.array_equal(y.float().numpy(), oracle[f"k1/{bs}"]), bs
 
 
+def dense_row_graph():
+    """256 nodes in blocks of 32: nodes 64-95 link to and from nodes of
+    every block but the last, and nothing else links: in either
+    orientation block row 2 holds 7 blocks and every other row one (the
+    last a padding block)."""
+    rng = np.random.default_rng(30)
+    hub = rng.integers(64, 96, 600)
+    far = rng.integers(0, 224, 600)
+    return RGraph(256, np.concatenate([hub, far]), np.concatenate([far, hub]))
+
+
+@pytest.mark.parametrize("transpose", [True, False])
+def test_k1_plain_dense_block_row_matches_pallas(transpose):
+    """The plain K1 (the kernel's twin) on an operator with one dense
+    block row, against the Pallas kernel in interpret mode: f64 at rtol
+    1e-13, f32 at rtol 1e-6 (as above)."""
+    g = dense_row_graph()
+    for dtype, rtol in (("float64", 1e-13), ("float32", 1e-6)):
+        r, p = both_ops(g, 32, dtype, transpose=transpose)
+        counts = np.diff(p.row_ptr.numpy())
+        assert counts.max() == 7 and (counts == 1).sum() >= 5
+        rng = np.random.default_rng(4)
+        x, cin = rng.random((r.n_pad, 5)), rng.random((r.n_pad, 5))
+        y_ref = r_k1(r.blocks, r.idx, jnp.asarray(x, JDT[dtype]),
+                     jnp.asarray(cin, JDT[dtype]), bs=32, interpret=True,
+                     accum_dtype=jnp.float64 if dtype == "float64"
+                     else jnp.float32)
+        y = K.bsr_scaled_matvec(p.blocks, p.idx, p.row_ptr,
+                                torch.tensor(x).to(TDT[dtype]),
+                                torch.tensor(cin).to(TDT[dtype]), bs=32)
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=rtol,
+                                   atol=rtol * np.abs(np.asarray(y_ref)).max())
+
+
+def test_k1_plain_dense_block_row_bf16_bit_exact(oracle):
+    """bf16 on the dense block row, bit for bit against the reference
+    run without XLA's excess precision."""
+    _, p = both_ops(dense_row_graph(), 32, "bfloat16")
+    x, c = bf16_inputs(p.n_pad)
+    y = K.bsr_scaled_matvec(p.blocks, p.idx, p.row_ptr,
+                            torch.tensor(x).bfloat16(),
+                            torch.tensor(c).bfloat16(), bs=32)
+    assert np.array_equal(y.float().numpy(), oracle["k1dense"])
+
+
+def test_k1_scratch_sizes_and_reserve():
+    """K1's workspace holds every block's (vt, bs) product in y's dtype
+    (vt: V rounded up to a power of two, at most 16 per launch); one fold
+    counter per block row and 32-row slice. ``Scratch.reserve`` grows,
+    never shrinks, and its counters start at 0; ``Scratch.on`` refuses a
+    scratch on another device."""
+    assert K.K1_ROWS == 32
+    assert K.k1_scratch_sizes(350, 32, 128, 8, 8) == (350 * 128 * 8 * 8,
+                                                      32 * 4)
+    assert K.k1_scratch_sizes(10, 7, 16, 3, 2) == (10 * 16 * 4 * 2, 7)
+    assert K.k1_scratch_sizes(10, 7, 64, 20, 4) == (10 * 64 * 16 * 4, 14)
+    scr = K.Scratch("cpu")
+    assert scr.ws.numel() == 0 and scr.cnt.numel() == 0
+    scr.reserve(100, 5)
+    ws, cnt = scr.ws, scr.cnt
+    assert ws.numel() == 100 and cnt.dtype == torch.int32
+    assert not cnt.any()
+    scr.reserve(50, 3)
+    assert scr.ws is ws and scr.cnt is cnt
+    scr.reserve(200, 9)
+    assert scr.ws.numel() == 200 and scr.cnt.numel() == 9
+    assert K.Scratch.on("cpu", scr) is scr
+    assert K.Scratch.on("cpu").ws.numel() == 0
+    with pytest.raises(ValueError):
+        K.Scratch.on("meta", scr)
+
+
 def test_oracle_matches_reference_oracle():
     """``kernels.ref`` computes in f32 like the reference's oracle."""
     g = rand_graph(150, 900, seed=3)
@@ -253,6 +325,12 @@ def compute_oracle(path):
             r.blocks, r.idx, jnp.asarray(x, jnp.bfloat16),
             jnp.asarray(c, jnp.bfloat16), bs=bs,
             interpret=True).astype(jnp.float32))
+    r, _ = both_ops(dense_row_graph(), 32, "bfloat16")
+    x, c = bf16_inputs(r.n_pad)
+    out["k1dense"] = np.asarray(r_k1(
+        r.blocks, r.idx, jnp.asarray(x, jnp.bfloat16),
+        jnp.asarray(c, jnp.bfloat16), bs=32,
+        interpret=True).astype(jnp.float32))
     runs = {f"k2/{s}/{b}/{k}": (s, 50 + 9 * s, 1 + 2 * s, k, b, 1e-10, 200)
             for s in (0, 2) for b in (None, "bfloat16") for k in (0, 5)}
     runs.update({f"k2f/{s}/{k}": (s, 60, 3, k, "float32", 1e-10, 200)

@@ -286,5 +286,83 @@ def test_tile_ptr_points_at_each_blocks_tiles(bs, tile_e):
         pk.tile_ptr_of(np.array([0, 2, 1], np.int32), 3)
 
 
+def layout_dst(layout):
+    """(dst, n_nodes) of the layouts K3's parallel schedule is tested at
+    (bs 32, tile_e 16): heavy, one block of 42 tiles beside two light
+    ones; one_row, a block whose first three tiles hit one row only."""
+    rng = np.random.default_rng(12)
+    if layout == "heavy":
+        return np.concatenate([rng.integers(0, 32, 20),
+                               32 + rng.integers(0, 32, 42 * 16 - 5),
+                               64 + rng.integers(0, 32, 9)]), 96
+    return np.concatenate([np.full(3 * 16, 9), rng.integers(0, 32, 7),
+                           32 + rng.integers(0, 32, 30)]), 64
+
+
+@pytest.mark.parametrize("accum", ["float32", "float64"])
+@pytest.mark.parametrize("layout", ["heavy", "one_row"])
+def test_plain_k3_at_schedule_layouts_matches_reference(layout, accum):
+    """The plain K3 (the kernel's bit-equal twin) against the JAX
+    ``seg_matmul`` in interpret mode at the layouts the parallel schedule
+    is tested at on the card: f32 messages at the reference test's 1e-5,
+    f64 messages with the f64 accumulator at rtol 1e-13 (two summation
+    orders)."""
+    dst, n = layout_dst(layout)
+    r = rk.build_tiled_segments(dst, n, bs=32, tile_e=16)
+    p = pk.build_tiled_segments(dst, n, bs=32, tile_e=16)
+    assert np.diff(pk.tile_ptr_of(p["blkid"], p["n_blocks"])).max() >= (
+        42 if layout == "heavy" else 3)
+    msgs = np.random.default_rng(2).standard_normal((dst.size, 5))
+    jdt, tdt, rtol = ((jnp.float32, torch.float32, 1e-5) if accum ==
+                      "float32" else (jnp.float64, torch.float64, 1e-13))
+    mr = rk.pad_messages(jnp.asarray(msgs, jdt), r)
+    want = np.asarray(r_seg_matmul(jnp.asarray(r["blkid"]), mr,
+                                   jnp.asarray(r["off"]),
+                                   jnp.asarray(r["valid"]), r["n_blocks"],
+                                   bs=32, interpret=True,
+                                   accum_dtype=jnp.dtype(accum)))
+    mp = pk.pad_messages(torch.from_numpy(msgs).to(tdt), p)
+    got = seg_matmul_plain(torch.from_numpy(p["blkid"]), mp,
+                           torch.from_numpy(p["off"]),
+                           torch.from_numpy(p["valid"]), p["n_blocks"],
+                           bs=32, accum_dtype=accum)
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol,
+                               atol=rtol * np.abs(want).max())
+
+
+def test_seg_scratch_sizes():
+    """K3's workspace holds every tile's (bs, F) contribution in the
+    messages' dtype; one fold counter per block and 32-column chunk."""
+    from repro_torch.kernels.seg_matmul import SEG_FC, seg_scratch_sizes
+    assert SEG_FC == 32
+    assert seg_scratch_sizes(2024, 165, 128, 64, 4) == (2024 * 128 * 64 * 4,
+                                                        330)
+    assert seg_scratch_sizes(10, 4, 32, 1, 8) == (10 * 32 * 8, 4)
+    assert seg_scratch_sizes(10, 4, 32, 33, 2)[1] == 8
+    assert seg_scratch_sizes(10, 4, 32, 32, 2)[1] == 4
+
+
+def test_device_segments_cached_per_layout():
+    """``DeviceSegments.of`` ships a layout once per device: the same
+    object on the second call, a new one for another layout, the entry
+    gone with the layout; the seg dict keeps the reference's keys."""
+    import gc
+    g = graph(32, 4)
+    seg = pk.build_tiled_segments(g.dst, g.n_nodes, bs=32, tile_e=64)
+    keys = set(seg)
+    a = pk.DeviceSegments.of(seg, "cpu")
+    assert pk.DeviceSegments.of(seg, "cpu") is a and set(seg) == keys
+    assert np.array_equal(a.tile_ptr.numpy(),
+                          pk.tile_ptr_of(seg["blkid"], seg["n_blocks"]))
+    assert a.blkid.dtype == a.off.dtype == a.valid.dtype == torch.int32
+    other = pk.build_tiled_segments(g.dst, g.n_nodes, bs=32, tile_e=64)
+    b = pk.DeviceSegments.of(other, "cpu")
+    assert b is not a
+    n = len(pk._SEG_CACHE)
+    del seg, other
+    gc.collect()
+    assert len(pk._SEG_CACHE) == n - 2
+
+
 if __name__ == "__main__":
     compute_oracle(sys.argv[1])
