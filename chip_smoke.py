@@ -14,8 +14,13 @@ Phases (any failure exits non-zero and prints no result line):
    f32 and bf16, plus bs 16 and V 1; a second run must give the same bits
    and leave the fold counters at 0; time per launch beside the bound and
    a PyTorch yardstick (``library_ms``);
-2. the sweep epilogue and K2 (``bsr_converge_cols``) against their plain
-   versions on the card: rank_k 0 and 10, ladder off and bf16;
+2. the sweep epilogue (its two kernels) and K2 (``bsr_converge_cols``, one
+   CUDA graph built, launched and destroyed per call) against their plain
+   versions on the card: rank_k 0 and 10, ladder off and bf16; each K2
+   call must show one graph build, one host read and 2 x (sweeps + 1) K1
+   and epilogue launches, as the kernels count them on the device; K2's
+   call time (events: buffers, build, launch, read), device time and graph
+   build time;
 2b. K3 (``seg_matmul``) through its path ``kernels.ops.seg_aggregate``
    (launch counter zeroed just before, read just after) on britannica's
    edges (bs 128, tile_e 256), seeded messages of widths 1, 8 and 64 in
@@ -27,8 +32,10 @@ Phases (any failure exits non-zero and prints no result line):
    with the ``bsr`` backend on the card, 3 batches of 8 seeded queries of 50
    roots, a repeat batch served from cache, then a rank_k=10 service and a
    bf16-ladder service; every query is held to the same service on the CPU,
-   and the launch counters (zeroed just before each run) must show K1, the
-   epilogue and K2 ran;
+   and the launch counters (zeroed just before each run) must show one K2
+   graph launch and one host read per batch, K1 and the epilogue launched
+   2 x (sweeps + 1) times per batch; a profiled rerun must see as many K1
+   and epilogue kernels on the device as the counters;
 3b. live edge deltas on the f64 ``bsr`` service: the 3 batches, a
    weight-only delta (1 % of the first batch's union edges reweighted by
    2.0, drawn from the seed) and the same 24 queries again (the service
@@ -41,13 +48,15 @@ Phases (any failure exits non-zero and prints no result line):
 4. a ``{"kernels": [...]}`` line, then the contract's last line.
 
 It imports torch, numpy and the port only. K1's and K3's ``ms`` is the
-kernel's device time per launch, from the profiler; ``call_ms`` (printed)
-and every other time come from CUDA events over repeated calls after a
-warm-up, so they include the host's time to launch. Bounds are computed
+kernel's device time per launch and the epilogue's the device time of
+its two kernels, from the profiler; K2's ``ms`` is its call time, graph
+build included, as every main-path batch pays it;
+``call_ms`` (printed) and every other time come from CUDA events over
+repeated calls after a warm-up, so they include the host's time to
+launch. Bounds are computed
 from this run's inputs against the H100 SXM data-sheet peaks below.
 """
 import json
-import math
 import subprocess
 import sys
 import time
@@ -58,6 +67,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+L2_BYTES = 50 * 2 ** 20    # H100 SXM L2
 # peak rate per operand type: bf16 dense tensor cores and f32 outside the
 # tensor cores; f64 tensor cores (H100 SXM data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 67e12}
@@ -127,10 +137,11 @@ def main():
 
     from torch.profiler import ProfilerActivity, profile
 
-    def device_ms(fn, n, kernel=None):
-        """Mean device ms of one launch of the kernel named ``kernel`` over
-        n calls of fn after a warm-up, from the profiler's device times: the
-        kernel's own time, apart from the host's time to launch it. With
+    def device_ms(fn, n, kernel=None, per_call=False):
+        """Mean device ms of one launch of the kernels whose names hold
+        ``kernel`` over n calls of fn after a warm-up, from the profiler's
+        device times: the kernels' own time, apart from the host's time to
+        launch them (``per_call``: their total per call of fn). With
         ``kernel`` None: the device time of every kernel and copy of a call,
         per call."""
         fn()
@@ -146,7 +157,7 @@ def main():
                 t = t if t is not None else e.self_cuda_time_total
                 us += t
                 count += e.count if t else 0
-        if kernel is None:
+        if kernel is None or per_call:
             count = n
         return us / 1e3 / count if count else float("nan")
 
@@ -281,7 +292,7 @@ def main():
     for rk in (0, 10):
         states, hs = [], []
         for _ in range(2):
-            ctl = torch.zeros(3, dtype=torch.int32, device=dev)
+            ctl = torch.zeros(2, dtype=torch.int32, device=dev)
             states.append(K.LoopState.start(ctl, v, rk, 1000))
             hs.append(h0.clone())
         K.sweep_epilogue(hr, hs[0], a, states[0], tol=1e-10,
@@ -294,29 +305,39 @@ def main():
             check(torch.equal(getattr(states[0], f), getattr(states[1], f)),
                   f"epilogue rank_k={rk}: {f} differs from the plain version")
         check(err <= 1e-15, f"epilogue rank_k={rk}: h differs by {err:.3e}")
-        # tol -1 and a large max_iter keep the flag set across repeats
-        st = K.LoopState.start(torch.zeros(3, dtype=torch.int32, device=dev),
+        # tol -1 and large stable_sweeps and max_iter keep the flag set
+        # across repeats (a stopped loop's epilogue returns at once)
+        st = K.LoopState.start(torch.zeros(2, dtype=torch.int32, device=dev),
                                v, rk, 10 ** 9)
         hk = h0.clone()
-        t_k = ms(lambda: K.sweep_epilogue(hr, hk, a, st, tol=-1.0,
-                                          stable_sweeps=2,
-                                          max_iter=10 ** 9), 50)
-        st_p = K.LoopState.start(torch.zeros(3, dtype=torch.int32,
+
+        def epi():
+            K.sweep_epilogue(hr, hk, a, st, tol=-1.0, stable_sweeps=10 ** 9,
+                             max_iter=10 ** 9)
+        # ms: the device time of one epilogue (its two kernels); call_ms
+        # adds the wrapper's host work
+        t_k = device_ms(epi, 50, "ep_", per_call=True)
+        t_call = ms(epi, 50)
+        check(int(st.ctl[0]) == 1, f"epilogue rank_k={rk}: the timed loop "
+              "stopped, so the timing read no-op launches")
+        st_p = K.LoopState.start(torch.zeros(2, dtype=torch.int32,
                                              device=dev), v, rk, 10 ** 9)
         hp = h0.clone()
         t_p = ms(lambda: K.sweep_epilogue_plain(hr, hp, a, st_p, tol=-1.0,
-                                                stable_sweeps=2,
+                                                stable_sweeps=10 ** 9,
                                                 max_iter=10 ** 9), 5)
         moved = nbytes(hr, hk, hk) + (nbytes(a) if rk else 0)
-        ep[rk] = dict(err=err, ms=t_k, plain_ms=t_p,
+        ep[rk] = dict(err=err, ms=t_k, call_ms=t_call, plain_ms=t_p,
                       bound_ms=moved / HBM_BYTES_PER_S * 1e3)
         print(f"[epilogue rank_k={rk}] max_abs_err={err:.3e} ms={t_k:.4f} "
-              f"plain_ms={t_p:.4f} bound_ms={ep[rk]['bound_ms']:.5f}",
-              flush=True)
+              f"(device, both kernels; call_ms={t_call:.4f}) "
+              f"plain_ms={t_p:.4f} bound_ms={ep[rk]['bound_ms']:.5f} "
+              f"({st.ep.slices} slices of {st.ep.rows} rows)", flush=True)
 
     lo = {o: K.BsrOperand(getattr(plan, o).blocks.to(torch.bfloat16),
                           getattr(plan, o).idx, getattr(plan, o).row_ptr)
           for o in ("lt", "lfwd")}
+    op_bytes = nbytes(*lt) + nbytes(*lf)
     k2 = {}
     for rk in (0, 10):
         for bulk in (None, "bfloat16"):
@@ -327,7 +348,7 @@ def main():
             K.reset_counters()
             out = K.bsr_converge_cols(lt, lf, h0, ca, ch, m, 1e-10, **kw)
             torch.cuda.synchronize()
-            syncs = K.counters.host_syncs
+            counts = K.counters.as_dict()
             ref = K.bsr_converge_cols_plain(lt, lf, h0, ca, ch, m, 1e-10,
                                             **kw)
             dh = (out[0] - ref[0]).abs().sum(0).max().item()
@@ -338,18 +359,57 @@ def main():
                   f"plain {ref[2].tolist()}")
             check(dh <= 1e-10 and da <= 1e-10,
                   f"K2 rank_k={rk} ladder={bulk}: L1 h {dh:.3e} a {da:.3e}")
-            phases = 2 if bulk else 1
-            check(syncs <= math.ceil(sweeps / K.CHUNK) + phases,
-                  f"K2: {syncs} host syncs for {sweeps} sweeps")
-            entry = dict(err=max(dh, da), sweeps=sweeps, syncs=syncs)
+            check(counts["host_syncs"] == 1 and counts["k2_graph_builds"] == 1
+                  and counts["bsr_spmm"] == 2 * (sweeps + 1)
+                  and counts["sweep_epilogue"] == 2 * (sweeps + 1),
+                  f"K2 rank_k={rk} ladder={bulk}: {sweeps} sweeps as "
+                  f"{counts}, not one graph launch with one host read")
+            entry = dict(err=max(dh, da), sweeps=sweeps,
+                         syncs=counts["host_syncs"],
+                         launches=counts["bsr_spmm"])
             if rk == 0 and bulk is None:
-                entry["ms"] = ms(lambda: K.bsr_converge_cols(
-                    lt, lf, h0, ca, ch, m, 1e-10, **kw), 3)
+                # call_ms: a call as the main path makes it (buffers, graph
+                # build, one launch, the host read, the graph's destroy)
+                call = lambda: K.bsr_converge_cols(  # noqa: E731
+                    lt, lf, h0, ca, ch, m, 1e-10, **kw)
+                entry["call_ms"] = ms(call, 10)
+                entry["device_ms"] = device_ms(call, 5)
+                # a call's host time, step by step (host clock): buffers,
+                # the builder's arguments, graph build (capture plus
+                # instantiate), launch plus the read (which waits for the
+                # device), destroy
+                steps = dict.fromkeys(("buffers", "args", "build",
+                                       "launch_read", "destroy"), 0.0)
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    bufs = K.K2Buffers(
+                        lt, lf, None, None, h0, ca, ch, m, bs=plan.bs,
+                        bulk_dtype=None, k_eff=0, tol=1e-10, bulk_tol=0.0,
+                        max_iter=1000, stable_sweeps=2)
+                    t1 = time.perf_counter()
+                    gr = K.K2Graph(bufs)
+                    t2 = time.perf_counter()
+                    gr.run()
+                    t3 = time.perf_counter()
+                    gr.destroy()
+                    t4 = time.perf_counter()
+                    for k_, dt_ in zip(steps, (
+                            t1 - t0, t2 - t1 - gr.build_ms / 1e3,
+                            gr.build_ms / 1e3, t3 - t2, t4 - t3)):
+                        steps[k_] += dt_ * 1e3 / 5
+                entry["build_ms"] = steps["build"]
+                entry["steps"] = steps
                 entry["plain_ms"] = ms(lambda: K.bsr_converge_cols_plain(
                     lt, lf, h0, ca, ch, m, 1e-10, **kw), 1)
-                op_bytes = nbytes(*lt) + nbytes(*lf)
-                t_bytes = (op_bytes + nbytes(h0, ca, ch, m) * 1.5) \
-                    / HBM_BYTES_PER_S * 1e3
+                # bound: each input read once and each output written once,
+                # or this run's flops ((sweeps + 1) sweeps of both K1s).
+                # Beside it, the bytes if L2 kept nothing between sweeps
+                # (reread_ms) and the least re-reading a 50 MiB L2 allows
+                # (l2_ms): the two f64 operators are larger than L2
+                moved = op_bytes + nbytes(h0, ca, ch, m, out[0], out[1],
+                                          out[2], out[3])
+                t_bytes = moved / HBM_BYTES_PER_S * 1e3
                 t_ops = (sweeps + 1) * 2.0 * sum(nblk) * plan.bs ** 2 * v \
                     / PEAK_FLOPS["float64"] * 1e3
                 entry["bound_ms"] = max(t_bytes, t_ops)
@@ -357,15 +417,30 @@ def main():
                     else "operations"
                 entry["reread_ms"] = (sweeps + 1) * op_bytes \
                     / HBM_BYTES_PER_S * 1e3
+                entry["l2_ms"] = (op_bytes + sweeps * max(
+                    0, op_bytes - L2_BYTES)) / HBM_BYTES_PER_S * 1e3
             k2[(rk, bulk)] = entry
             print(f"[K2 rank_k={rk} ladder={bulk}] sweeps={sweeps} "
-                  f"host_syncs={syncs} conv={out[2].tolist()} "
+                  f"K1 launches={counts['bsr_spmm']} epilogue launches="
+                  f"{counts['sweep_epilogue']} host_syncs="
+                  f"{counts['host_syncs']} graph builds="
+                  f"{counts['k2_graph_builds']} conv={out[2].tolist()} "
                   f"L1 h={dh:.2e} a={da:.2e}"
-                  + (f" ms={entry['ms']:.3f} plain_ms={entry['plain_ms']:.3f}"
-                     f" bound_ms={entry['bound_ms']:.4f} "
-                     f"(operators re-read every sweep: "
-                     f"{entry['reread_ms']:.4f})" if "ms" in entry else ""),
-                  flush=True)
+                  + (f" call_ms={entry['call_ms']:.4f} (events: buffers, "
+                     f"graph build, launch, read) device_ms="
+                     f"{entry['device_ms']:.4f} graph_build_ms="
+                     f"{entry['build_ms']:.4f} (host ms per step: "
+                     + " ".join(f"{k_}={v_:.4f}" for k_, v_
+                                in entry["steps"].items())
+                     + ") plain_ms="
+                     f"{entry['plain_ms']:.3f} bound_ms="
+                     f"{entry['bound_ms']:.4f} ({entry['bound_by']}: "
+                     f"{op_bytes / 1e6:.1f} MB of operators read once) "
+                     f"reread_ms={entry['reread_ms']:.4f} (if L2 kept "
+                     f"nothing: (sweeps + 1) x the operators) l2_ms="
+                     f"{entry['l2_ms']:.4f} (re-reading what a 50 MiB L2 "
+                     "cannot hold)"
+                     if "call_ms" in entry else ""), flush=True)
 
     # -------------------------------------------- 2b. K3 (seg_aggregate)
     tdt = {"float64": torch.float64, "float32": torch.float32,
@@ -483,12 +558,14 @@ def main():
             spans.setdefault(j, {})[stage] = (s0, s1)
         per_batch = [max(r.iters for r in got[8 * b:8 * b + 8])
                      for b in range(3)]
-        check(counts["bsr_spmm"] > 0 and counts["sweep_epilogue"] > 0
-              and counts["bsr_converge"] == 3,
-              f"{label}: the main path did not run the kernels: {counts}")
-        sync_cap = sum(math.ceil(s / K.CHUNK) + 2 for s in per_batch)
-        check(counts["host_syncs"] <= sync_cap,
-              f"{label}: {counts['host_syncs']} host syncs > {sync_cap}")
+        # one graph launch and one host read per batch: K1 and the
+        # epilogue run twice per sweep and twice for the certificate
+        want_k1 = sum(2 * (s + 1) for s in per_batch)
+        check(counts["bsr_converge"] == 3 and counts["host_syncs"] == 3
+              and counts["bsr_spmm"] == want_k1
+              and counts["sweep_epilogue"] == want_k1,
+              f"{label}: sweeps per batch {per_batch} ran as {counts}, not "
+              f"one K2 graph per batch with {want_k1} K1 launches")
         print(f"[main {label}] 3 batches x 8 queries in {wall * 1e3:.1f} ms "
               f"({24 / wall:.1f} queries/s); sweeps per batch {per_batch}; "
               f"counters {counts}")
@@ -524,14 +601,22 @@ def main():
     # share it implies is an upper bound)
     fresh = RankService(g, RankServiceConfig(device="cuda", **cfg))
     torch.cuda.synchronize()
+    K.reset_counters()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fresh.rank(queries)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
+    counted = {"bsr_spmm": K.counters.bsr_spmm,
+               "sweep_epilogue": K.counters.sweep_epilogue}
+    seen = dict.fromkeys(counted, 0)
     dev_us = {}
     for e in prof.key_averages():
+        if "bsr_spmm_kernel" in e.key:
+            seen["bsr_spmm"] += e.count
+        elif "ep_slice_kernel" in e.key or "ep_finish_kernel" in e.key:
+            seen["sweep_epilogue"] += e.count
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0)
@@ -547,6 +632,13 @@ def main():
     else:
         print("[main f64 profile] the profiler reported no device time: "
               "device busy share not measured")
+    # the counts the kernels kept on the device against the kernel
+    # instances the profiler saw on the card
+    check(seen == counted and counted["bsr_spmm"] > 0,
+          f"main path: the profiler saw {seen} kernels, the counters say "
+          f"{counted}")
+    print(f"[main f64 profile] kernels seen by the profiler {seen} = the "
+          f"device-kept counts", flush=True)
     K.reset_counters()
     again = svc.rank(queries[:8])
     check(all(r.status == "hit" for r in again) and
@@ -716,15 +808,20 @@ def main():
              source="src/repro_torch/kernels/csrc/bsr_spmm.cu",
              replaces="src/repro/kernels/bsr_spmm.py:179",
              launches=counts["sweep_epilogue"], max_abs_err=ep[0]["err"],
-             ms=ep[0]["ms"], plain_ms=ep[0]["plain_ms"],
-             bound_ms=ep[0]["bound_ms"], bound_by="bytes", library_ms=None),
+             ms=ep[0]["ms"], ms_rank_k10=ep[10]["ms"],
+             plain_ms=ep[0]["plain_ms"], bound_ms=ep[0]["bound_ms"],
+             bound_by="bytes", library_ms=None),
         dict(name="bsr_converge_cols", route="cuda",
-             source="src/repro_torch/kernels/bsr_spmm.py",
+             source="src/repro_torch/kernels/csrc/bsr_spmm.cu",
              replaces="src/repro/kernels/bsr_spmm.py:117",
              launches=counts["bsr_converge"],
              max_abs_err=max(e["err"] for e in k2.values()),
-             ms=k2[(0, None)]["ms"], plain_ms=k2[(0, None)]["plain_ms"],
+             ms=k2[(0, None)]["call_ms"],
+             device_ms=k2[(0, None)]["device_ms"],
+             build_ms=k2[(0, None)]["build_ms"],
+             plain_ms=k2[(0, None)]["plain_ms"],
              bound_ms=k2[(0, None)]["bound_ms"],
+             reread_ms=k2[(0, None)]["reread_ms"],
              bound_by=k2[(0, None)]["bound_by"], library_ms=None),
         dict(name="seg_matmul", route="cuda",
              source="src/repro_torch/kernels/csrc/seg_matmul.cu",

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for the H100 and their plain-torch versions.
 
 bsr_spmm: block-sparse adjacency x multi-vector with fused Ca/Ch scaling
-          (K1) and the on-device convergence loop around it (K2) with its
-          sweep-epilogue kernel.
+          (K1) and the convergence loop around it (K2), one CUDA graph per
+          call (``K2Graph``), with its sweep-epilogue kernels.
 seg_matmul: tiled segment-sum of gathered edge messages (K3), behind
           ``ops.seg_aggregate``.
 The kernels build at first use from ``csrc/`` (``kernels.build``); on CPU
@@ -11,7 +11,8 @@ pieces (blocks, tiles) in parallel and fold them in order through a
 ``Scratch`` (workspace and fold counters).
 """
 from .build import Scratch
-from .bsr_spmm import (BsrOperand, LoopState, bsr_converge_cols,
+from .bsr_spmm import (BsrOperand, K2Graph, LoopState,
+                       bsr_converge_cols,
                        bsr_converge_cols_plain, bsr_scaled_matvec,
                        bsr_scaled_matvec_plain, counters, reset_counters,
                        sweep_certificate, sweep_certificate_plain,
@@ -22,7 +23,7 @@ from .ops import (DeviceBSR, DeviceSegments, bsr_converge, bsr_matvec, bsr_reval
 from .seg_matmul import seg_matmul, seg_matmul_plain
 
 __all__ = [
-    "BsrOperand", "LoopState", "Scratch", "DeviceSegments", "bsr_converge_cols", "bsr_converge_cols_plain",
+    "BsrOperand", "K2Graph", "LoopState", "Scratch", "DeviceSegments", "bsr_converge_cols", "bsr_converge_cols_plain",
     "bsr_scaled_matvec", "bsr_scaled_matvec_plain", "counters",
     "reset_counters", "sweep_certificate", "sweep_certificate_plain",
     "sweep_epilogue", "sweep_epilogue_plain", "DeviceBSR", "bsr_converge",

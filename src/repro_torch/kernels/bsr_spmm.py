@@ -1,5 +1,5 @@
 """Block-sparse (BSR) matrix x multi-vector with fused diagonal scaling,
-and the on-device accelerated-HITS convergence loop around it.
+and the accelerated-HITS convergence loop around it.
 
 Port of ``repro.kernels.bsr_spmm``. Three wrappers, each with a plain
 PyTorch version of the same signature beside it:
@@ -11,19 +11,23 @@ PyTorch version of the same signature beside it:
   the last CTA of each block row adds them in idx order (``Scratch``).
 * ``sweep_epilogue`` / ``sweep_certificate``: the per-sweep epilogue of the
   loop (normalize, residual, rank stability, conv, stop flag) and the
-  final certificate, as ``csrc/bsr_spmm.cu::sweep_epilogue_kernel``.
+  final certificate, as two kernels that each run one CTA per slice of
+  rows (``csrc/bsr_spmm.cu::ep_slice_kernel``, ``ep_finish_kernel``).
 * ``bsr_converge_cols`` (K2, replaces the Pallas loop
   ``bsr_converge_cols``): the masked multi-column loop, with the
-  precision ladder and the residual certificate. On the card it keeps all
-  state on the device, enqueues sweeps in chunks of ``CHUNK`` with every
-  kernel predicated on the device stop flag, and reads that flag once per
-  chunk — no host sync per sweep.
+  precision ladder and the residual certificate. On the card each call
+  builds the whole loop as one CUDA graph (``K2Graph``) whose sweeps run
+  under conditional WHILE nodes, the counterpart of the reference's
+  ``lax.while_loop``, launches it once, reads it once and destroys it.
+  ``k2_steps`` describes the graph; ``k2_rehearse`` runs that description
+  with the plain versions on the CPU.
 
 A wrapper runs its plain version only when it is given CPU tensors; for
 CUDA tensors it launches its kernel or raises. The kernels build at first
 use (``kernels.build``), which also holds ``counters``: one object, shared
-with K3, that counts launches per wrapper and the loop's host syncs;
-``reset_counters()`` zeroes them.
+with K3, that counts launches per wrapper, the loop's host reads and K2's
+graph builds; ``reset_counters()`` zeroes them. Inside K2's graph, K1 and
+the epilogue count their own launches on the device.
 
 Rounding copies the Pallas kernel, not the f32 oracle (``kernels.ref``):
 x ⊙ cin in x's dtype, block products accumulated in f64 for f64 blocks
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import torch
@@ -50,7 +55,8 @@ _DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
 BLOCK_SIZES = (16, 32, 64, 128)
 V_GROUP = 16   # widest column group one K1 launch takes
 K1_ROWS = 32   # rows of a block one K1 CTA takes (bs 16: all 16)
-CHUNK = 8      # sweeps enqueued between two reads of the stop flag
+EP_SLICES = 128  # slices (CTAs) the epilogue kernels aim for
+EP_MAXV = 256    # columns the epilogue kernels take
 _EPS = 1e-30
 
 
@@ -72,13 +78,25 @@ def natural_accum(dtype) -> torch.dtype:
 
 
 def _declare(lib):
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    p, i, d, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
+        ctypes.c_longlong
     lib.bsr_spmm_launch.argtypes = [i, i, i, p, p, p, i, i, p, p, i, p, p, i,
                                     i, i, p, p, p, p]
     lib.bsr_spmm_launch.restype = i
-    lib.sweep_epilogue_launch.argtypes = [i, p, p, p, i, i, d, i, i, p, p, p,
-                                          p, p, p, i, i, p]
+    lib.sweep_epilogue_launch.argtypes = [i, p, p, p] + [i] * 6 + [d, ll, ll] \
+        + [p] * 11
     lib.sweep_epilogue_launch.restype = i
+    lib.k2_args_size.argtypes = []
+    lib.k2_args_size.restype = ll
+    if lib.k2_args_size() != ctypes.sizeof(_K2Args):
+        raise RuntimeError(f"K2Args is {lib.k2_args_size()} bytes in the "
+                           f"library, {ctypes.sizeof(_K2Args)} in _K2Args")
+    lib.k2_graph_build.argtypes = [p, p]
+    lib.k2_graph_build.restype = i
+    lib.k2_graph_launch.argtypes = [p, p]
+    lib.k2_graph_launch.restype = i
+    lib.k2_graph_destroy.argtypes = [p]
+    lib.k2_graph_destroy.restype = i
 
 
 def _lib():
@@ -172,6 +190,23 @@ def _reserve_k1(scratch: Scratch, ops, bs: int, v: int) -> Scratch:
     return scratch.reserve(max(w for w, _ in sizes), max(c for _, c in sizes))
 
 
+def _check_operand(op: BsrOperand, bs: int, n_pad: int, dt, dev, what):
+    blocks, idx, row_ptr = op
+    nblocks = blocks.shape[0]
+    _check(bs in BLOCK_SIZES, f"K1 block size {bs} not in {BLOCK_SIZES}")
+    _check(n_pad == (row_ptr.shape[0] - 1) * bs,
+           f"{what}: x has {n_pad} rows, operator {row_ptr.shape[0] - 1}x{bs}")
+    _check(tuple(blocks.shape) == (nblocks, bs, bs) and tuple(idx.shape)
+           == (nblocks, 2), f"{what}: blocks/idx shapes do not match")
+    _check(blocks.device == dev and blocks.dtype == dt
+           and blocks.is_contiguous(),
+           f"{what}: blocks must be contiguous {dt} on {dev}")
+    for name, t in (("idx", idx), ("row_ptr", row_ptr)):
+        _check(t.device == dev and t.dtype == torch.int32
+               and t.is_contiguous(), f"{what}: {name} must be contiguous "
+               f"int32 on {dev}")
+
+
 def _launch_spmm(op: BsrOperand, x, cin, bs: int, accum_dtype, mask, out,
                  active=None, scratch: Optional[Scratch] = None):
     """Validate and launch K1 into ``out``; V wider than ``V_GROUP`` runs as
@@ -181,29 +216,21 @@ def _launch_spmm(op: BsrOperand, x, cin, bs: int, accum_dtype, mask, out,
     dev = x.device
     dt = x.dtype
     _check(dt in _DTYPE_CODE, f"K1 takes f64, f32 or bf16, not {dt}")
-    _check(bs in BLOCK_SIZES, f"K1 block size {bs} not in {BLOCK_SIZES}")
     acc = natural_accum(dt) if accum_dtype is None else torch_dtype(accum_dtype)
     _check(acc == natural_accum(dt),
            f"K1 accumulates {dt} in {natural_accum(dt)}, not {acc}")
     n_pad, v = x.shape
+    _check_operand(op, bs, n_pad, dt, dev, "K1")
     nblocks = blocks.shape[0]
     n_brows = row_ptr.shape[0] - 1
-    _check(n_pad == n_brows * bs, f"x has {n_pad} rows, operator {n_brows}x{bs}")
-    _check(tuple(blocks.shape) == (nblocks, bs, bs) and tuple(idx.shape)
-           == (nblocks, 2), "blocks/idx shapes do not match")
     _check(cin.shape[0] == n_pad and cin.shape[1] in (1, v),
            f"cin must be ({n_pad}, 1) or ({n_pad}, {v})")
-    for name, t in (("blocks", blocks), ("x", x), ("cin", cin),
-                    ("mask", mask), ("out", out)):
+    for name, t in (("x", x), ("cin", cin), ("mask", mask), ("out", out)):
         if t is None:
             continue
         _check(t.device == dev, f"{name} on {t.device}, x on {dev}")
         _check(t.dtype == dt, f"{name} is {t.dtype}, x is {dt}")
         _check(t.is_contiguous(), f"{name} must be contiguous")
-    for name, t in (("idx", idx), ("row_ptr", row_ptr)):
-        _check(t.device == dev and t.dtype == torch.int32
-               and t.is_contiguous(), f"{name} must be contiguous int32 "
-               f"on {dev}")
     for t in (mask, out):
         _check(t is None or tuple(t.shape) == (n_pad, v),
                f"mask/out must be ({n_pad}, {v})")
@@ -247,23 +274,63 @@ def bsr_scaled_matvec(blocks, idx, row_ptr, x, cin, *, bs: int,
 # -------------------------------------------------------- sweep epilogue
 
 
+def ep_slicing(n: int) -> tuple:
+    """(rows per slice, slices) of the epilogue kernels for n rows: about
+    ``EP_SLICES`` slices (one CTA each) of a multiple of 16 rows, so every
+    slice of the row-major (n, V) arrays starts on 16 bytes."""
+    rows = -(-max(int(n), 1) // EP_SLICES)
+    rows = -(-rows // 16) * 16
+    return rows, -(-max(int(n), 1) // rows)
+
+
+@dataclasses.dataclass
+class EpilogueScratch:
+    """The epilogue kernels' workspace: each slice's f64 column sums of
+    |hr|, |a| and |hn − h| (3, slices, V), each slice's top-k of a per
+    column (slices, V, k), values and indices, and ``cnt``, the second
+    kernel's count of finished CTAs (0 between launches)."""
+
+    part: torch.Tensor
+    cand_v: torch.Tensor
+    cand_i: torch.Tensor
+    cnt: torch.Tensor
+    rows: int
+    slices: int
+
+    @staticmethod
+    def make(n: int, v: int, k_eff: int, device) -> "EpilogueScratch":
+        rows, slices = ep_slicing(n)
+        return EpilogueScratch(
+            torch.empty((3, slices, v), dtype=torch.float64, device=device),
+            torch.empty((slices, v, k_eff), dtype=torch.float64,
+                        device=device),
+            torch.empty((slices, v, k_eff), dtype=torch.int32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device), rows, slices)
+
+    def fits(self, n: int, v: int, k_eff: int) -> bool:
+        return (ep_slicing(n) == (self.rows, self.slices)
+                and self.part.shape[2] == v and self.cand_v.shape[2] == k_eff)
+
+
 @dataclasses.dataclass
 class LoopState:
-    """Device state of one phase of the convergence loop.
+    """Device state of the convergence loop.
 
-    ``ctl`` = [stop flag (1 while sweeping), sweep count k, epilogue CTAs
-    finished this sweep] is shared by the phases of one loop, so k carries
-    across the ladder's switch; ``conv``/``stab``/``top`` are per phase
-    (the rank state resets at the switch). ``top`` is (V, k_eff) — k_eff 0
-    turns the rank-stability rule off.
+    ``ctl`` = [stop flag (1 while sweeping), sweep count k] is shared by
+    the phases of one loop, so k carries across the ladder's switch;
+    ``conv``/``stab``/``top`` are per phase (the rank state resets at the
+    switch). ``top`` is (V, k_eff) — k_eff 0 turns the rank-stability rule
+    off. ``ep`` is the epilogue kernels' workspace (made at the first
+    launch when None).
     """
 
-    ctl: torch.Tensor     # (3,) int32
+    ctl: torch.Tensor     # (2,) int32
     conv: torch.Tensor    # (V,) int32, -1 while running
     stop: torch.Tensor    # (V,) int32, this sweep's stop decision
     stab: torch.Tensor    # (V,) int32, sweeps with an unchanged top-k
     top: torch.Tensor     # (V, k_eff) int32, last top-k (-1: none yet)
     delta: torch.Tensor   # (V,) f64, this sweep's residual
+    ep: Optional[EpilogueScratch] = None
 
     @staticmethod
     def start(ctl, v: int, k_eff: int, max_iter: int) -> "LoopState":
@@ -271,7 +338,6 @@ class LoopState:
         device, no sync)."""
         dev = ctl.device
         ctl[0:1].copy_(ctl[1:2] < max_iter)
-        ctl[2] = 0
         i32 = dict(dtype=torch.int32, device=dev)
         return LoopState(ctl=ctl, conv=torch.full((v,), -1, **i32),
                          stop=torch.zeros(v, **i32),
@@ -310,12 +376,17 @@ def sweep_epilogue_plain(hr, h, a, st: LoopState, *, tol: float,
     st.ctl[0] = int(k1 < max_iter and bool((st.conv < 0).any()))
 
 
-def _launch_epilogue(hr, h, a, st: Optional[LoopState], res, *, tol: float,
+def _launch_epilogue(hr, h, a, st: Optional[LoopState], res,
+                     ep: Optional[EpilogueScratch], *, tol: float,
                      stable_sweeps: int, max_iter: int):
+    """The epilogue's two kernels (slice sums and top-k; normalize, merge,
+    control) on ``st`` (a sweep, workspace ``st.ep``) or into ``res`` (the
+    certificate, st None, workspace ``ep`` or a new one)."""
     dev = h.device
     dt = h.dtype
     _check(dt in _DTYPE_CODE, f"epilogue takes f64, f32 or bf16, not {dt}")
     n, v = h.shape
+    _check(1 <= v <= EP_MAXV, f"epilogue takes 1 to {EP_MAXV} columns, not {v}")
     for name, t in (("hr", hr), ("h", h), ("a", a)):
         _check(t.device == dev and t.dtype == dt and t.is_contiguous()
                and tuple(t.shape) == (n, v),
@@ -323,28 +394,36 @@ def _launch_epilogue(hr, h, a, st: Optional[LoopState], res, *, tol: float,
     if st is None:  # certificate
         _check(res.dtype == torch.float64 and res.numel() == v
                and res.device == dev, "res must be (V,) f64 on the device")
-        args = (0.0, 0, 1, None, None, None, None, res.data_ptr(), None, 0, 1)
+        k_eff, mode = 0, 1
+        if ep is None or not ep.fits(n, v, ep.cand_v.shape[2]):
+            ep = EpilogueScratch.make(n, v, 0, dev)
+        state = (None, None, None, None, None, res.data_ptr())
     else:
-        k_eff = st.top.shape[1]
-        args = (tol_in(tol, dt), k_eff, int(stable_sweeps), _ptr(st.top),
-                st.stab.data_ptr(), st.stop.data_ptr(), st.conv.data_ptr(),
-                st.delta.data_ptr(), st.ctl.data_ptr(), int(max_iter), 0)
+        k_eff, mode = st.top.shape[1], 0
+        if st.ep is None or not st.ep.fits(n, v, k_eff):
+            st.ep = EpilogueScratch.make(n, v, k_eff, dev)
+        ep = st.ep
+        state = (st.ctl.data_ptr(), st.conv.data_ptr(), st.stop.data_ptr(),
+                 st.stab.data_ptr(), _ptr(st.top), st.delta.data_ptr())
+    _check(ep.part.device == dev, f"epilogue workspace on {ep.part.device}")
     err = _lib().sweep_epilogue_launch(
         _DTYPE_CODE[dt], hr.data_ptr(), h.data_ptr(), a.data_ptr(), n, v,
-        *args, _stream(dev))
-    counters.sweep_epilogue += 1
+        ep.rows, ep.slices, k_eff, mode, tol_in(tol, dt), int(max_iter),
+        int(stable_sweeps), state[0], ep.cnt.data_ptr(), *state[1:],
+        ep.part.data_ptr(), _ptr(ep.cand_v), _ptr(ep.cand_i), _stream(dev))
+    counters.sweep_epilogue += 2
     _raise_on(err, "sweep_epilogue")
 
 
 def sweep_epilogue(hr, h, a, st: LoopState, *, tol: float,
                    stable_sweeps: int, max_iter: int):
-    """One sweep's epilogue (see ``sweep_epilogue_plain``), as one kernel
-    launch predicated on ``st.ctl[0]``; no host sync."""
+    """One sweep's epilogue (see ``sweep_epilogue_plain``), as the two
+    epilogue kernels, predicated on ``st.ctl[0]``; no host sync."""
     if not h.is_cuda:
         return sweep_epilogue_plain(hr, h, a, st, tol=tol,
                                     stable_sweeps=stable_sweeps,
                                     max_iter=max_iter)
-    _launch_epilogue(hr, h, a, st, None, tol=tol,
+    _launch_epilogue(hr, h, a, st, None, None, tol=tol,
                      stable_sweeps=stable_sweeps, max_iter=max_iter)
 
 
@@ -357,12 +436,13 @@ def sweep_certificate_plain(hr, h, a):
     return res
 
 
-def sweep_certificate(hr, h, a):
-    """The loop's closing certificate (see ``sweep_certificate_plain``)."""
+def sweep_certificate(hr, h, a, ep: Optional[EpilogueScratch] = None):
+    """The loop's closing certificate (see ``sweep_certificate_plain``), on
+    the workspace ``ep`` (a loop's ``LoopState.ep``) or a new one."""
     if not h.is_cuda:
         return sweep_certificate_plain(hr, h, a)
     res = torch.empty(h.shape[1], dtype=torch.float64, device=h.device)
-    _launch_epilogue(hr, h, a, None, res, tol=0.0, stable_sweeps=0,
+    _launch_epilogue(hr, h, a, None, res, ep, tol=0.0, stable_sweeps=0,
                      max_iter=0)
     return res
 
@@ -430,70 +510,252 @@ def bsr_converge_cols_plain(lt: BsrOperand, lf: BsrOperand, h0, ca, ch,
     return h, a, conv, res
 
 
-def _spmm_plain_into(op: BsrOperand, x, cin, bs, accum_dtype, mask, out,
-                     active=None, scratch=None):
-    """``_launch_spmm``'s plain twin: K1 into ``out``, skipped while the
-    flag ``active[0]`` is 0 (the CPU rehearsal of the device loop); it
-    needs no ``scratch``."""
-    if active is None or int(active[0]):
-        out.copy_(bsr_scaled_matvec_plain(*op, x, cin, bs=bs,
-                                          accum_dtype=accum_dtype, mask=mask))
+# ------------------------------------------------------------- K2's graph
+
+STEP_OPS = {"reset": 0, "while": 1, "spmm": 2, "epilogue": 3, "cast": 4,
+            "finish": 5, "certificate": 6}
+PHASES = ("hi", "lo")  # full precision; the ladder's bulk phase
+
+
+def k2_steps(ladder: bool) -> tuple:
+    """K2 as a list of (op, phase, arg) steps: the description that
+    ``K2Graph`` hands to the CUDA builder, which captures each step, and
+    that ``k2_rehearse`` interprets with the plain versions.
+
+    * ``reset``: start a phase (conv −1, stab 0, top −1), k = 0 when arg
+      is 1, and set the stop flag / WHILE condition to k < max_iter;
+    * ``while``: run the body (arg, a step list) while the condition
+      holds, testing it before each iteration;
+    * ``spmm``: K1 on Lᵀ (arg 0: h → a) or L (arg 1: a → hr);
+    * ``epilogue``: the sweep's epilogue, which updates the condition;
+    * ``cast``: the bulk phase's h widened into the full-precision h;
+    * ``finish``: conv = where(conv < 0, k, conv);
+    * ``certificate``: res = ‖normalize(hr) − h‖₁, a normalized.
+    """
+    def sweep(p):
+        return (("spmm", p, 0), ("spmm", p, 1), ("epilogue", p, 0))
+    steps = ()
+    if ladder:
+        steps += (("reset", "lo", 1), ("while", "lo", sweep("lo")),
+                  ("cast", "hi", 0))
+    return steps + (("reset", "hi", 0 if ladder else 1),
+                    ("while", "hi", sweep("hi")), ("finish", "hi", 0),
+                    ("spmm", "hi", 0), ("spmm", "hi", 1),
+                    ("certificate", "hi", 0))
+
+
+def _encode_steps(steps) -> list:
+    """The steps as the builder reads them: (op, phase, arg) int triples,
+    a WHILE's arg its body's length, the body's triples right after it."""
+    out = []
+    for op, ph, arg in steps:
+        if op == "while":
+            out += [STEP_OPS[op], PHASES.index(ph), len(arg)]
+            out += _encode_steps(arg)
+        else:
+            out += [STEP_OPS[op], PHASES.index(ph), int(arg)]
     return out
 
 
-def _epilogue_kernel(hr, h, a, st, *, tol, stable_sweeps, max_iter):
-    _launch_epilogue(hr, h, a, st, None, tol=tol,
-                     stable_sweeps=stable_sweeps, max_iter=max_iter)
+@dataclasses.dataclass
+class _PhaseBuffers:
+    lt: BsrOperand
+    lf: BsrOperand
+    h: torch.Tensor   # (n_pad, V), updated in place by the epilogue
+    a: torch.Tensor
+    hr: torch.Tensor  # the new hub vector before normalization
+    ca: torch.Tensor
+    ch: torch.Tensor
+    mask: torch.Tensor
 
 
-# (K1 into out, sweep epilogue, certificate) for the chunked loop
-_KERNEL_OPS = (_launch_spmm, _epilogue_kernel, sweep_certificate)
-_PLAIN_OPS = (_spmm_plain_into, sweep_epilogue_plain, sweep_certificate_plain)
+class K2Buffers:
+    """Every tensor one K2 call's steps read or write: per phase the
+    operators and the (n_pad, V) vectors (the first phase's h a copy of h0;
+    ca/ch/mask the caller's tensors where their dtype is the phase's), the
+    loop state shared by the phases with its epilogue workspace, the
+    certificate ``res``, K1's ``Scratch``, and ``launches`` = [K1,
+    epilogue] kernels the graph launched, counted on the device. The
+    call's values ride along: ``tol`` per phase (full precision, bulk),
+    ``max_iter`` and ``stable_sweeps``."""
+
+    def __init__(self, lt, lf, lt_lo, lf_lo, h0, ca, ch, mask, *, bs: int,
+                 bulk_dtype, k_eff: int, tol: float, bulk_tol: float,
+                 max_iter: int, stable_sweeps: int):
+        n_pad, v = h0.shape
+        dev, dt = h0.device, h0.dtype
+
+        def phase(t_op, f_op, pdt, first):
+            h = h0.to(pdt, memory_format=torch.contiguous_format, copy=True) \
+                if first else torch.empty((n_pad, v), dtype=pdt, device=dev)
+            return _PhaseBuffers(t_op, f_op, h, torch.empty_like(h),
+                                 torch.empty_like(h),
+                                 *(x.to(pdt).contiguous()
+                                   for x in (ca, ch, mask)))
+        self.phases = {"hi": phase(lt, lf, dt, bulk_dtype is None)}
+        if bulk_dtype is not None:
+            self.phases["lo"] = phase(lt_lo, lf_lo, bulk_dtype, True)
+        self.state = LoopState.start(
+            torch.zeros(2, dtype=torch.int32, device=dev), v, k_eff, 0)
+        self.state.ep = EpilogueScratch.make(n_pad, v, k_eff, dev)
+        self.res = torch.zeros(v, dtype=torch.float64, device=dev)
+        ops = [o for p in self.phases.values() for o in (p.lt, p.lf)]
+        self.scratch = _reserve_k1(Scratch(dev), ops, bs, v)
+        self.launches = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.n_pad, self.v, self.k_eff, self.bs = n_pad, v, k_eff, bs
+        self.tol = (tol_in(tol, dt), 0.0 if bulk_dtype is None
+                    else tol_in(bulk_tol, bulk_dtype))
+        self.max_iter, self.stable_sweeps = int(max_iter), int(stable_sweeps)
 
 
-def _converge_chunked(lt, lf, h0, ca, ch, mask, tol, bs, accum, max_iter,
-                      k_eff, stable_sweeps, lt_lo, lf_lo, bulk_tol,
-                      bulk_dtype, ops=_KERNEL_OPS):
-    """The device loop: per sweep K1, K1 and the epilogue, each predicated
-    on the device flag ``ctl[0]``, enqueued ``CHUNK`` sweeps at a time; the
-    host reads the flag once per chunk. ``ops`` are the kernels, or their
-    plain versions to rehearse the same control flow on the CPU. K1's
-    workspace and counters are made once, for every operator of the call."""
-    spmm, epilogue, certificate = ops
-    counters.bsr_converge += 1
-    ctl = torch.zeros(3, dtype=torch.int32, device=h0.device)
-    scr = _reserve_k1(Scratch(h0.device),
-                      [o for o in (lt, lf, lt_lo, lf_lo) if o is not None],
-                      bs, h0.shape[1])
+def _run_steps_plain(steps, b: K2Buffers, runs: dict):
+    """Interpret ``steps`` on ``b`` with the plain versions; ``runs``
+    counts the steps run per (op, phase)."""
+    st = b.state
+    for op, ph, arg in steps:
+        if op == "while":
+            while int(st.ctl[0]):  # tested before each iteration
+                _run_steps_plain(arg, b, runs)
+            continue
+        runs[op, ph] = runs.get((op, ph), 0) + 1
+        p = b.phases[ph]
+        if op == "reset":
+            if arg:
+                st.ctl[1] = 0
+            st.conv.fill_(-1)
+            st.stab.zero_()
+            st.top.fill_(-1)
+            st.ctl[0] = int(int(st.ctl[1]) < b.max_iter)
+        elif op == "spmm":
+            op_, x, cin, out = (p.lt, p.h, p.ch, p.a) if arg == 0 else \
+                (p.lf, p.a, p.ca, p.hr)
+            out.copy_(bsr_scaled_matvec_plain(*op_, x, cin, bs=b.bs,
+                                              mask=p.mask))
+        elif op == "epilogue":
+            sweep_epilogue_plain(p.hr, p.h, p.a, st,
+                                 tol=b.tol[PHASES.index(ph)],
+                                 stable_sweeps=b.stable_sweeps,
+                                 max_iter=b.max_iter)
+        elif op == "cast":
+            b.phases["hi"].h.copy_(b.phases["lo"].h)
+        elif op == "finish":
+            st.conv.copy_(torch.where(st.conv < 0, st.ctl[1], st.conv))
+        elif op == "certificate":
+            b.res.copy_(sweep_certificate_plain(p.hr, p.h, p.a))
+        else:
+            raise ValueError(f"unknown K2 step {op!r}")
 
-    def loop(lt_op, lf_op, h, cav, chv, mv, stop_tol, acc):
-        h = h.contiguous().clone()  # updated in place by the epilogue
-        a = torch.empty_like(h)
-        hr = torch.empty_like(h)
-        st = LoopState.start(ctl, h.shape[1], k_eff, max_iter)
-        while True:
-            for _ in range(CHUNK):
-                spmm(lt_op, h, chv, bs, acc, mv, a, active=ctl, scratch=scr)
-                spmm(lf_op, a, cav, bs, acc, mv, hr, active=ctl, scratch=scr)
-                epilogue(hr, h, a, st, tol=stop_tol,
-                         stable_sweeps=stable_sweeps, max_iter=max_iter)
-            counters.host_syncs += 1
-            if int(ctl[0]) == 0:
-                return h, st.conv
 
-    if bulk_dtype is not None:
-        bd = torch_dtype(bulk_dtype)
-        h_lo, _ = loop(lt_lo, lf_lo, h0.to(bd), ca.to(bd).contiguous(),
-                       ch.to(bd).contiguous(), mask.to(bd).contiguous(),
-                       bulk_tol, natural_accum(bd))
-        h0 = h_lo.to(h0.dtype)
-    h, conv = loop(lt, lf, h0, ca, ch, mask, tol, accum)
-    conv = torch.where(conv < 0, ctl[1], conv)
-    # certificate: one more full-precision sweep from the published h
-    a = spmm(lt, h, ch, bs, accum, mask, torch.empty_like(h), scratch=scr)
-    hr = spmm(lf, a, ca, bs, accum, mask, torch.empty_like(h), scratch=scr)
-    res = certificate(hr, h, a)
-    return h, a, conv, res
+def k2_rehearse(lt: BsrOperand, lf: BsrOperand, h0, ca, ch, mask,
+                tol: float, *, bs: int, max_iter: int, rank_k: int = 0,
+                stable_sweeps: int = 2, lt_lo: Optional[BsrOperand] = None,
+                lf_lo: Optional[BsrOperand] = None, bulk_tol: float = 0.0,
+                bulk_dtype=None):
+    """K2's graph rehearsed on the CPU: the buffers and the step list
+    (``k2_steps``) that ``K2Graph`` captures, interpreted with the plain
+    versions under WHILE semantics. Returns ((h, a, conv, res), {(op,
+    phase): times run})."""
+    k_eff = min(int(rank_k), h0.shape[0]) if rank_k else 0
+    bd = None if bulk_dtype is None else torch_dtype(bulk_dtype)
+    b = K2Buffers(lt, lf, lt_lo, lf_lo, h0, ca, ch, mask, bs=bs,
+                  bulk_dtype=bd, k_eff=k_eff, tol=tol, bulk_tol=bulk_tol,
+                  max_iter=max_iter, stable_sweeps=stable_sweeps)
+    runs = {}
+    _run_steps_plain(k2_steps(bd is not None), b, runs)
+    hi = b.phases["hi"]
+    return (hi.h, hi.a, b.state.conv, b.res), runs
+
+
+class _K2Operand(ctypes.Structure):
+    _fields_ = [("blocks", ctypes.c_void_p), ("idx", ctypes.c_void_p),
+                ("row_ptr", ctypes.c_void_p), ("nblocks", ctypes.c_longlong)]
+
+
+class _K2Phase(ctypes.Structure):
+    _fields_ = [("lt", _K2Operand), ("lf", _K2Operand)] + [
+        (n, ctypes.c_void_p) for n in ("h", "a", "hr", "ca", "ch", "mask")] \
+        + [("dtype", ctypes.c_longlong)]
+
+
+class _K2Args(ctypes.Structure):
+    """``K2Args`` of ``csrc/bsr_spmm.cu`` (checked against
+    ``k2_args_size()`` at load)."""
+
+    _fields_ = [("phase", _K2Phase * 2), ("steps", ctypes.c_void_p),
+                ("n_steps", ctypes.c_longlong)] + [
+        (n, ctypes.c_void_p) for n in (
+            "ctl", "conv", "stop", "stab", "top", "delta", "res", "part",
+            "cand_v", "cand_i", "ep_cnt", "ws", "cnt", "launches")] + [
+        (n, ctypes.c_longlong) for n in (
+            "n_pad", "V", "bs", "rank_k", "ep_rows", "ep_slices", "max_iter",
+            "stable_sweeps")] + [
+        ("tol", ctypes.c_double), ("bulk_tol", ctypes.c_double)]
+
+
+class K2Graph:
+    """K2 as one executable CUDA graph: ``k2_steps`` captured by
+    ``csrc/bsr_spmm.cu::k2_graph_build`` over the pointers and values of
+    one call's ``K2Buffers``, so it serves that call only. ``run`` launches
+    it and reads the device's launch counts once; ``destroy`` frees it.
+    ``build_ms`` is the build's host time (capture plus instantiate)."""
+
+    def __init__(self, b: K2Buffers):
+        self.bufs = b
+        codes = _encode_steps(k2_steps("lo" in b.phases))
+        steps = (ctypes.c_longlong * len(codes))(*codes)
+        args = _K2Args(steps=ctypes.addressof(steps),
+                       n_steps=len(codes) // 3)
+        for i, name in enumerate(PHASES):
+            p = b.phases.get(name)
+            if p is None:
+                continue
+            ph = args.phase[i]
+            for field, op in (("lt", p.lt), ("lf", p.lf)):
+                setattr(ph, field, _K2Operand(
+                    op.blocks.data_ptr(), op.idx.data_ptr(),
+                    op.row_ptr.data_ptr(), op.blocks.shape[0]))
+            for field in ("h", "a", "hr", "ca", "ch", "mask"):
+                setattr(ph, field, getattr(p, field).data_ptr())
+            ph.dtype = _DTYPE_CODE[p.h.dtype]
+        st = b.state
+        for field, t in (("ctl", st.ctl), ("conv", st.conv),
+                         ("stop", st.stop), ("stab", st.stab),
+                         ("top", st.top), ("delta", st.delta),
+                         ("res", b.res), ("part", st.ep.part),
+                         ("cand_v", st.ep.cand_v), ("cand_i", st.ep.cand_i),
+                         ("ep_cnt", st.ep.cnt), ("ws", b.scratch.ws),
+                         ("cnt", b.scratch.cnt), ("launches", b.launches)):
+            setattr(args, field, _ptr(t))
+        args.n_pad, args.V, args.bs, args.rank_k = b.n_pad, b.v, b.bs, b.k_eff
+        args.ep_rows, args.ep_slices = st.ep.rows, st.ep.slices
+        args.max_iter, args.stable_sweeps = b.max_iter, b.stable_sweeps
+        args.tol, args.bulk_tol = b.tol
+        exe = ctypes.c_void_p()
+        t0 = time.perf_counter()
+        err = _lib().k2_graph_build(ctypes.byref(args), ctypes.byref(exe))
+        self.build_ms = (time.perf_counter() - t0) * 1e3
+        _raise_on(err, "k2_graph_build")
+        counters.k2_graph_builds += 1
+        self.exec = exe.value
+
+    def run(self):
+        """Launch the graph once; returns (h, a, conv, res), the buffers'
+        own tensors."""
+        b = self.bufs
+        _raise_on(_lib().k2_graph_launch(self.exec, _stream(b.res.device)),
+                  "k2_graph")
+        k1, ep = b.launches.tolist()  # the call's one host read
+        counters.host_syncs += 1
+        counters.bsr_converge += 1
+        counters.bsr_spmm += k1
+        counters.sweep_epilogue += ep
+        hi = b.phases["hi"]
+        return hi.h, hi.a, b.state.conv, b.res
+
+    def destroy(self):
+        if self.exec:
+            _raise_on(_lib().k2_graph_destroy(self.exec), "k2_graph_destroy")
+            self.exec = None
 
 
 def bsr_converge_cols(lt: BsrOperand, lf: BsrOperand, h0, ca, ch, mask,
@@ -518,10 +780,9 @@ def bsr_converge_cols(lt: BsrOperand, lf: BsrOperand, h0, ca, ch, mask,
     published authority. h0/ca/ch/mask: (n_pad, V). Returns (h, a, conv,
     res) on the inputs' device.
 
-    CPU tensors run ``bsr_converge_cols_plain``. CUDA tensors run the
-    device loop: K1, K1 and the epilogue per sweep, all predicated on the
-    device stop flag, enqueued ``CHUNK`` sweeps at a time with one flag
-    read per chunk, so ``conv`` equals the per-sweep loop's.
+    CPU tensors run ``bsr_converge_cols_plain``. CUDA tensors run the loop
+    as one CUDA graph (``K2Graph``), built for the call, launched once, read
+    once and destroyed.
     """
     if bulk_dtype is not None and (lt_lo is None or lf_lo is None):
         raise ValueError("bulk_dtype set but lt_lo/lf_lo operators missing")
@@ -531,10 +792,29 @@ def bsr_converge_cols(lt: BsrOperand, lf: BsrOperand, h0, ca, ch, mask,
             max_iter=max_iter, rank_k=rank_k, stable_sweeps=stable_sweeps,
             lt_lo=lt_lo, lf_lo=lf_lo, bulk_tol=bulk_tol,
             bulk_dtype=bulk_dtype)
-    k_eff = min(int(rank_k), h0.shape[0]) if rank_k else 0
-    accum = natural_accum(h0.dtype) if accum_dtype is None \
-        else torch_dtype(accum_dtype)
-    ca, ch, mask = (t.contiguous() for t in (ca, ch, mask))
-    return _converge_chunked(lt, lf, h0, ca, ch, mask, float(tol), bs, accum,
-                             int(max_iter), k_eff, int(stable_sweeps), lt_lo,
-                             lf_lo, float(bulk_tol), bulk_dtype)
+    dev, dt = h0.device, h0.dtype
+    n_pad, v = h0.shape
+    _check(dt in _DTYPE_CODE, f"K2 takes f64, f32 or bf16, not {dt}")
+    acc = natural_accum(dt) if accum_dtype is None else torch_dtype(accum_dtype)
+    _check(acc == natural_accum(dt),
+           f"K1 accumulates {dt} in {natural_accum(dt)}, not {acc}")
+    _check(1 <= v <= EP_MAXV, f"K2 takes 1 to {EP_MAXV} columns, not {v}")
+    for name, t in (("h0", h0), ("ca", ca), ("ch", ch), ("mask", mask)):
+        _check(t.device == dev and tuple(t.shape) == (n_pad, v),
+               f"{name} must be ({n_pad}, {v}) on {dev}")
+    bd = None if bulk_dtype is None else torch_dtype(bulk_dtype)
+    ops = [(lt, dt, "lt"), (lf, dt, "lf")]
+    if bd is not None:
+        _check(bd in _DTYPE_CODE, f"the ladder takes f32 or bf16, not {bd}")
+        ops += [(lt_lo, bd, "lt_lo"), (lf_lo, bd, "lf_lo")]
+    for op, odt, what in ops:
+        _check_operand(op, bs, n_pad, odt, dev, what)
+    k_eff = min(int(rank_k), n_pad) if rank_k else 0
+    graph = K2Graph(K2Buffers(
+        lt, lf, lt_lo, lf_lo, h0, ca, ch, mask, bs=bs, bulk_dtype=bd,
+        k_eff=k_eff, tol=float(tol), bulk_tol=float(bulk_tol),
+        max_iter=max_iter, stable_sweeps=stable_sweeps))
+    try:
+        return graph.run()
+    finally:
+        graph.destroy()

@@ -38,16 +38,18 @@ build_seconds: Dict[str, float] = {}
 
 class Counters:
     """Plain integer counts of kernel launches, one field per wrapper, and
-    K2's host syncs; a wrapper adds one where it launches its kernel."""
+    K2's host reads and graph builds; a wrapper adds one where it launches
+    its kernel (K2 adds its graph's launches after its host read)."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
         self.bsr_spmm = 0        # K1 kernel launches
-        self.sweep_epilogue = 0  # epilogue kernel launches (sweep + certificate)
-        self.bsr_converge = 0    # K2 device loops run
-        self.host_syncs = 0      # K2 reads of the device stop flag
+        self.sweep_epilogue = 0  # epilogue kernel launches (two per sweep or certificate)
+        self.bsr_converge = 0    # K2 calls on the card
+        self.host_syncs = 0      # K2's host reads (one per call)
+        self.k2_graph_builds = 0  # K2 graphs captured and instantiated
         self.seg_matmul = 0      # K3 kernel launches
 
     def as_dict(self) -> dict:

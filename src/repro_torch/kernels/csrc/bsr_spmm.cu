@@ -5,12 +5,12 @@
 //     y = (A_bsr @ (x * cin)) * mask
 // over the nonzero (BS x BS) blocks of A, sorted by block row.
 //
-// sweep_epilogue replaces the per-sweep body of the TPU loop
-// bsr_converge_cols (same file): per column, L1-normalize the new hub
-// vector (eps 1e-30), take the residual against the old one, apply the
-// optional top-k rank-stability rule, and update conv / the sweep count /
-// the device stop flag, so the host reads that flag once per chunk of
-// sweeps instead of once per sweep.
+// The sweep epilogue (ep_slice_kernel + ep_finish_kernel) is the per-sweep
+// body of the TPU loop bsr_converge_cols (same file) after its two K1
+// calls: per column, L1-normalize the new hub vector (eps 1e-30), take the
+// residual against the old one, apply the optional top-k rank-stability
+// rule, and update conv / the sweep count / the stop flag. K2 runs the
+// whole loop as one CUDA graph (k2_graph_build, at the end of this file).
 //
 // What bounds them on the H100: K1 reads every stored block once per call
 // (an f64 main-path operator is ~43 MB against 50 MB of L2), so it is
@@ -19,7 +19,7 @@
 // first version) keeps one tile in flight per SM and is bound by latency
 // and by its densest block row: the blocking permutation packs the graph's
 // hubs into a few block rows. The epilogue touches O(n_pad * V) values and
-// is launch/latency bound.
+// is launch/latency bound: it runs one CTA per slice of rows.
 //
 // K1 design: parallel over blocks, then an in-order fold.
 // * One CTA of 128 threads per (nonzero block, slice of RB = 32 rows). It
@@ -51,12 +51,13 @@
 //   in-order add, so the parallel schedule changes no bit of the result.
 // * Block rows without blocks come out 0 * mask: the CTAs of the first
 //   block after them (and of the last block) write them.
-// * Every kernel takes an optional device flag `active`; with *active == 0
-//   every CTA returns at once, so sweeps enqueued after the loop stopped
-//   change nothing and leave the counters at 0.
+// * K1 takes an optional device flag `active`; with *active == 0 every CTA
+//   returns at once and leaves the counters at 0 (null inside the K2 graph).
+//   Inside the K2 graph, where the host launches nothing itself, each launch
+//   adds one to a device counter `launches` (null outside the graph).
 //
 // Plain C interface (loaded with ctypes); every launcher launches on the
-// stream it is given, allocates nothing, and returns cudaGetLastError().
+// stream it is given, allocates nothing, and returns its CUDA error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +65,7 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -150,12 +152,16 @@ bsr_spmm_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
                 const T* __restrict__ x, const T* __restrict__ cin,
                 int cin_cols, const T* __restrict__ mask, T* __restrict__ y,
                 int ld, int col0, int v, T* __restrict__ ws,
-                int* __restrict__ cnt, const int* __restrict__ active) {
+                int* __restrict__ cnt, const int* __restrict__ active,
+                unsigned long long* __restrict__ launches) {
   using S = K1Shape<T, BS, VT>;
   using A = typename S::A;
   constexpr int RB = S::RB, G = S::G, JG = S::JG, EC = S::EC, RC = S::RC;
   constexpr int SLICES = BS / RB;
   if (active != nullptr && *active == 0) return;
+  if (launches != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    atomicAdd(launches, 1ULL);
+  }
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tile = reinterpret_cast<T*>(smem_raw);            // [RB][BS], swizzled
@@ -331,79 +337,196 @@ bsr_spmm_kernel(const T* __restrict__ blocks, const int* __restrict__ idx,
   if (t == 0) *counter = 0;
 }
 
+
+// K1's dynamic shared memory above the 48 KB default is an attribute of the
+// kernel, set once outside any stream capture
+template <typename T, int BS, int VT>
+cudaError_t k1_attr() {
+  using S = K1Shape<T, BS, VT>;
+  if (S::smem + 1024 <= 48 * 1024) return cudaSuccess;  // the static is_last flag counts too
+  return cudaFuncSetAttribute(bsr_spmm_kernel<T, BS, VT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::smem);
+}
+
 template <typename T, int BS, int VT>
 cudaError_t launch_k1(const void* blocks, const int* idx, const int* row_ptr,
                       int nblocks, int n_brows, const void* x, const void* cin,
                       int cin_cols, const void* mask, void* y, int ld,
                       int col0, int v, void* ws, int* cnt, const int* active,
-                      cudaStream_t stream) {
+                      unsigned long long* launches, cudaStream_t stream) {
   using S = K1Shape<T, BS, VT>;
-  auto kern = bsr_spmm_kernel<T, BS, VT>;
-  if (S::smem + 1024 > 48 * 1024) {  // the static is_last flag counts too
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::smem);
-    if (err != cudaSuccess) return err;
-  }
   dim3 grid(nblocks > 0 ? nblocks : 1, BS / S::RB);
-  kern<<<grid, K1_THREADS, S::smem, stream>>>(
+  bsr_spmm_kernel<T, BS, VT><<<grid, K1_THREADS, S::smem, stream>>>(
       static_cast<const T*>(blocks), idx, row_ptr, nblocks, n_brows,
       static_cast<const T*>(x), static_cast<const T*>(cin), cin_cols,
       static_cast<const T*>(mask), static_cast<T*>(y), ld, col0, v,
-      static_cast<T*>(ws), cnt, active);
+      static_cast<T*>(ws), cnt, active, launches);
   return cudaGetLastError();
 }
 
-#define K1_ARGS blocks, idx, row_ptr, nblocks, n_brows, x, cin, cin_cols, mask, y, ld, col0, v, ws, cnt, active, s
-#define K1_PARAMS                                                               \
-  const void *blocks, const int *idx, const int *row_ptr, int nblocks,          \
-      int n_brows, const void *x, const void *cin, int cin_cols,                \
-      const void *mask, void *y, int ld, int col0, int v, void *ws, int *cnt,  \
-      const int *active, cudaStream_t s
+template <typename T> struct Tag { using type = T; };
+template <int N> using Int = std::integral_constant<int, N>;
 
-template <typename T, int BS>
-cudaError_t k1_by_vt(int vt, K1_PARAMS) {
+// f(Tag<T>, Int<BS>, Int<VT>) for the K1 instance of (dtype, bs, vt)
+template <typename T, int BS, typename F>
+cudaError_t k1_vt(int vt, F&& f) {
   switch (vt) {
-    case 1: return launch_k1<T, BS, 1>(K1_ARGS);
-    case 2: return launch_k1<T, BS, 2>(K1_ARGS);
-    case 4: return launch_k1<T, BS, 4>(K1_ARGS);
-    case 8: return launch_k1<T, BS, 8>(K1_ARGS);
-    case 16: return launch_k1<T, BS, 16>(K1_ARGS);
+    case 1: return f(Tag<T>(), Int<BS>(), Int<1>());
+    case 2: return f(Tag<T>(), Int<BS>(), Int<2>());
+    case 4: return f(Tag<T>(), Int<BS>(), Int<4>());
+    case 8: return f(Tag<T>(), Int<BS>(), Int<8>());
+    case 16: return f(Tag<T>(), Int<BS>(), Int<16>());
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t k1_by_bs(int bs, int vt, K1_PARAMS) {
+template <typename T, typename F>
+cudaError_t k1_bs(int bs, int vt, F&& f) {
   switch (bs) {
-    case 16: return k1_by_vt<T, 16>(vt, K1_ARGS);
-    case 32: return k1_by_vt<T, 32>(vt, K1_ARGS);
-    case 64: return k1_by_vt<T, 64>(vt, K1_ARGS);
-    case 128: return k1_by_vt<T, 128>(vt, K1_ARGS);
+    case 16: return k1_vt<T, 16>(vt, f);
+    case 32: return k1_vt<T, 32>(vt, f);
+    case 64: return k1_vt<T, 64>(vt, f);
+    case 128: return k1_vt<T, 128>(vt, f);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename F>
+cudaError_t k1_dispatch(int dtype, int bs, int vt, F&& f) {
+  switch (dtype) {
+    case kF64: return k1_bs<double>(bs, vt, f);
+    case kF32: return k1_bs<float>(bs, vt, f);
+    case kBF16: return k1_bs<__nv_bfloat16>(bs, vt, f);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+constexpr int V_GROUP = 16;  // widest column group of one K1 launch
+
+int vt_of(int v) {
+  int vt = 1;
+  while (vt < v) vt *= 2;
+  return vt;
+}
+
+// one K1 column group: set the shared-memory attribute (attr_only) or launch
+int k1_group(int dtype, int bs, const void* blocks, const int* idx,
+             const int* row_ptr, int nblocks, int n_brows, const void* x,
+             const void* cin, int cin_cols, const void* mask, void* y, int ld,
+             int col0, int v, void* ws, int* cnt, const int* active,
+             unsigned long long* launches, cudaStream_t s, bool attr_only) {
+  if (nblocks < 0 || n_brows <= 0) return cudaErrorInvalidValue;
+  return k1_dispatch(dtype, bs, vt_of(v), [&](auto tag, auto b, auto w) {
+    using T = typename decltype(tag)::type;
+    constexpr int BS = decltype(b)::value, VT = decltype(w)::value;
+    if (attr_only) return k1_attr<T, BS, VT>();
+    return launch_k1<T, BS, VT>(blocks, idx, row_ptr, nblocks, n_brows, x,
+                                cin, cin_cols, mask, y, ld, col0, v, ws, cnt,
+                                active, launches, s);
+  });
 }
 
 // ------------------------------------------------------- sweep epilogue
+//
+// One sweep's epilogue (mode 0) or the certificate (mode 1) as two
+// launches, each one CTA per slice of `rows` rows covering all V columns:
+// (a) ep_slice_kernel writes the slice's f64 sums of |hr| (and of |a| for
+//     the certificate) per column, and with rank_k > 0 its local top-k of a
+//     per column in the order (value descending, index ascending);
+// (b) ep_finish_kernel adds (a)'s sums over the slices in a fixed order (the
+//     denominator), writes hn = hr / den into h (mode 0; mode 1 normalizes a
+//     instead) and the slice's sums of |hn - h|. The last CTA to finish
+//     (__threadfence + a counter it resets) adds those over the slices,
+//     merges the slices' top-k lists (a total order, so the schedule cannot
+//     change the result) and updates stab/top/stop/conv/k, the stop flag
+//     and, inside the K2 graph, the WHILE node's condition. Inside the
+//     graph each launch adds one to a device counter (`launches`).
+// The (n, V) arrays are row-major, so a slice is one contiguous run of
+// rows * V values: 16-byte loads, a thread's EC slots keep their columns
+// from one chunk to the next (ep_loaders). Sums stay in f64 and are rounded
+// once through the accumulator type, so they do not depend on the slicing
+// beyond f64 rounding, and the plain versions in bsr_spmm.py are the oracle.
 
 constexpr int EP_THREADS = 256;
 constexpr int EP_WARPS = EP_THREADS / 32;
+constexpr int EP_MAXV = 256;  // columns the epilogue takes
+constexpr int EP_HEADS = 4;   // slices per lane in the top-k merge (<= 128 slices)
+constexpr int EP_RL = 4;      // rows of a slice per lane kept in registers for its top-k
 
-// deterministic block sum (fixed shuffle tree, then warp 0 over the warps);
-// every thread gets the total
-template <typename A>
-__device__ A block_sum(A v, A* sh) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
-  __syncthreads();  // sh may still be read from a previous call
-  if (lane == 0) sh[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    v = lane < EP_WARPS ? sh[lane] : A(0);
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) sh[0] = v;
+struct EpArgs {
+  const void* hr;
+  void* h;
+  void* a;
+  int* ctl;           // [stop flag, sweep count k]; mode 0 only
+  int* cnt;           // finished CTAs of (b), 0 between launches
+  int* conv;
+  int* stop;
+  int* stab;
+  int* top;           // (V, rank_k)
+  double* delta;      // (V,) this sweep's residual / the certificate
+  double* part;       // (3, nslices, V) slice sums of |hr|, |a|, |hn - h|
+  double* cand_v;     // (nslices, V, rank_k) slice top-k: values
+  int* cand_i;        //   and indices
+  unsigned long long* launches;  // kernels launched (null: not counted)
+  unsigned long long cond;  // the WHILE node's handle (has_cond)
+  double tol;
+  long long max_iter, stable;
+  int n, V, rows, nslices, rank_k, mode, has_cond;
+};
+
+__device__ __forceinline__ void ep_count(const EpArgs& p) {
+  if (p.launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(p.launches, 1ULL);
+}
+
+__device__ __forceinline__ int gcd_i(int a, int b) {
+  while (b) {
+    const int r = a % b;
+    a = b;
+    b = r;
   }
-  __syncthreads();
-  return sh[0];
+  return a;
+}
+
+// threads that load: the largest multiple of V / gcd(V, EC) up to
+// EP_THREADS, so that B * EC is a multiple of V and slot u of thread t holds
+// column (t * EC + u) % V in every chunk t, t + B, ...
+template <int EC>
+__device__ __forceinline__ int ep_loaders(int V) {
+  const int m = V / gcd_i(V, EC);
+  return (EP_THREADS / m) * m;
+}
+
+template <typename T, int EC>
+__device__ __forceinline__ void ld_chunk(const T* p, int rel, int count,
+                                         bool vec, T (&v)[EC]) {
+  if (vec && rel + EC <= count) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p + rel);
+    const T* r = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int u = 0; u < EC; ++u) v[u] = r[u];
+  } else {
+#pragma unroll
+    for (int u = 0; u < EC; ++u) {
+      v[u] = rel + u < count ? p[rel + u] : Num<T>::from_acc(typename Num<T>::Acc(0));
+    }
+  }
+}
+
+template <typename T, int EC>
+__device__ __forceinline__ void st_chunk(T* p, int rel, int count, bool vec,
+                                         const T (&v)[EC]) {
+  if (vec && rel + EC <= count) {
+    uint4 raw;
+    T* r = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int u = 0; u < EC; ++u) r[u] = v[u];
+    *reinterpret_cast<uint4*>(p + rel) = raw;
+  } else {
+#pragma unroll
+    for (int u = 0; u < EC; ++u) {
+      if (rel + u < count) p[rel + u] = v[u];
+    }
+  }
 }
 
 // (value, index) ordered by value descending, then index ascending: the
@@ -413,154 +536,560 @@ __device__ __forceinline__ bool before(A v, int i, A bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
+// the first of a warp's (value, index) pairs in that total order, on every lane
 template <typename A>
-__device__ void block_argmax(A& v, int& i, A* shv, int* shi) {
+__device__ __forceinline__ void warp_first(A& v, int& i) {
   for (int off = 16; off > 0; off >>= 1) {
-    const A ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (before(ov, oi, v, i)) { v = ov; i = oi; }
-  }
-  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
-  __syncthreads();
-  if (lane == 0) { shv[wid] = v; shi[wid] = i; }
-  __syncthreads();
-  if (wid == 0) {
-    v = lane < EP_WARPS ? shv[lane] : -INFINITY;
-    i = lane < EP_WARPS ? shi[lane] : INT_MAX;
-    for (int off = 16; off > 0; off >>= 1) {
-      const A ov = __shfl_down_sync(0xffffffffu, v, off);
-      const int oi = __shfl_down_sync(0xffffffffu, i, off);
-      if (before(ov, oi, v, i)) { v = ov; i = oi; }
+    const A ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (before(ov, oi, v, i)) {
+      v = ov;
+      i = oi;
     }
-    if (lane == 0) { shv[0] = v; shi[0] = i; }
   }
-  __syncthreads();
-  v = shv[0];
-  i = shi[0];
 }
 
-// mode 0 (sweep): one CTA per column j; hr is the new masked hub vector
-// before normalization, h the current one (updated in place), a the
-// authority of this sweep. The last CTA to finish updates conv, the sweep
-// count ctl[1] and the stop flag ctl[0] (ctl[2] counts finished CTAs).
-// mode 1 (certificate): delta[j] = |normalize(hr) - h|_1 and a is
-// L1-normalized in place; h, conv and ctl are untouched.
-template <typename T>
-__global__ void __launch_bounds__(EP_THREADS)
-sweep_epilogue_kernel(const T* __restrict__ hr, T* __restrict__ h,
-                      T* __restrict__ a, int n, int V, double tol,
-                      int rank_k, int stable_sweeps, int* __restrict__ top,
-                      int* __restrict__ stab, int* __restrict__ stop,
-                      int* __restrict__ conv, double* __restrict__ delta,
-                      int* __restrict__ ctl, int max_iter, int mode) {
-  using A = typename Num<T>::Acc;
-  if (mode == 0 && ctl[0] == 0) return;
-  __shared__ double sh[EP_WARPS];
-  __shared__ A shv[EP_WARPS];
-  __shared__ int shi[EP_WARPS];
-  __shared__ bool is_last;
-  const int j = blockIdx.x;
-  const int t = threadIdx.x;
-  const A eps = rnd<T>(A(1e-30));
+// per column c, the sum of the CTA's slot partials red[c + j * V]: warp w
+// takes columns w, w + EP_WARPS, ...; lane l adds j = l, l + 32, ... in order,
+// then a fixed shuffle tree; lane 0 writes out[c]
+__device__ void ep_column_sums(const double* red, int slots, int V, double* out) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int per = slots / V;
+  for (int c = w; c < V; c += EP_WARPS) {
+    double s = 0.0;
+    for (int j = lane; j < per; j += 32) s += red[c + j * V];
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) out[c] = s;
+  }
+}
 
-  // ||h'||_1: kept in f64, then rounded through the accumulator type to T
-  // (jnp.sum's f32 accumulation for bf16), so its value does not depend on
-  // the order of the sum
+// the same over the slices' sums part[s * V + c], written by other CTAs;
+// every lane of the warp gets the total
+__device__ double ep_slices_sum(const double* part, int nslices, int V, int c) {
+  const int lane = threadIdx.x % 32;
   double s = 0.0;
-  for (int i = t; i < n; i += EP_THREADS) s += fabs((double)Num<T>::to_acc(hr[(long)i * V + j]));
-  s = block_sum(s, sh);
-  const A den = rnd<T>(rnd<T>((A)s) + eps);
+  for (int j = lane; j < nslices; j += 32) s += __ldcg(part + (long)j * V + c);
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+  return __shfl_sync(0xffffffffu, s, 0);
+}
 
-  double d = 0.0;
-  for (int i = t; i < n; i += EP_THREADS) {
-    const long e = (long)i * V + j;
-    const A hn = rnd<T>(Num<T>::to_acc(hr[e]) / den);
-    d += fabs((double)rnd<T>(hn - Num<T>::to_acc(h[e])));
-    if (mode == 0) h[e] = Num<T>::from_acc(hn);
-  }
-  d = block_sum(d, sh);
-  const A dT = rnd<T>((A)d);
-
-  if (mode == 1) {
-    double sa = 0.0;
-    for (int i = t; i < n; i += EP_THREADS) sa += fabs((double)Num<T>::to_acc(a[(long)i * V + j]));
-    sa = block_sum(sa, sh);
-    const A dena = rnd<T>(rnd<T>((A)sa) + eps);
-    for (int i = t; i < n; i += EP_THREADS) {
-      const long e = (long)i * V + j;
-      a[e] = Num<T>::from_acc(Num<T>::to_acc(a[e]) / dena);
+template <typename T>
+__global__ void __launch_bounds__(EP_THREADS) ep_slice_kernel(EpArgs p) {
+  using A = typename Num<T>::Acc;
+  constexpr int EC = 16 / (int)sizeof(T);
+  if (p.mode == 0 && !p.has_cond && p.ctl[0] == 0) return;
+  ep_count(p);
+  __shared__ double red[EP_THREADS * EC];
+  const int s = blockIdx.x, t = threadIdx.x, V = p.V;
+  const int r0 = s * p.rows, r1 = min(p.n, r0 + p.rows);
+  const int count = (r1 - r0) * V;
+  const long base = (long)r0 * V;
+  const int B = ep_loaders<EC>(V);
+  for (int pass = 0; pass < (p.mode == 1 ? 2 : 1); ++pass) {
+    const T* x = static_cast<const T*>(pass == 0 ? p.hr : p.a) + base;
+    const bool vec = aligned16(x);
+    double acc[EC];
+#pragma unroll
+    for (int u = 0; u < EC; ++u) acc[u] = 0.0;
+    if (t < B) {
+      for (int q = t; q * EC < count; q += B) {
+        T v[EC];
+        ld_chunk<T, EC>(x, q * EC, count, vec, v);
+#pragma unroll
+        for (int u = 0; u < EC; ++u) acc[u] += fabs((double)Num<T>::to_acc(v[u]));
+      }
     }
-    if (t == 0) delta[j] = (double)dT;
-    return;
+    __syncthreads();  // red may still be read by the previous pass
+    if (t < B) {
+#pragma unroll
+      for (int u = 0; u < EC; ++u) red[t * EC + u] = acc[u];
+    }
+    __syncthreads();
+    ep_column_sums(red, B * EC, V, p.part + ((long)pass * p.nslices + s) * V);
   }
-
-  bool stp = (double)dT <= tol;
-  if (rank_k > 0) {
-    // k rounds of arg-max, each over the entries ordered strictly after
-    // the previous pick: the top-k indices of the unnormalized a
-    bool same = true;
+  if (p.mode == 1 || p.rank_k == 0) return;
+  // the slice's top-k of a per column, as its list (value descending,
+  // index ascending; (-inf, INT_MAX) past the slice's rows): k rounds of
+  // the warp's first row strictly after the previous pick, a lane holding
+  // its first EP_RL rows in registers
+  const T* a = static_cast<const T*>(p.a);
+  const int lane = t % 32, w = t / 32;
+  for (int c = w; c < V; c += EP_WARPS) {
+    A av[EP_RL];
+#pragma unroll
+    for (int j = 0; j < EP_RL; ++j) {
+      const int r = r0 + lane + 32 * j;
+      av[j] = r < r1 ? Num<T>::to_acc(a[(long)r * V + c]) : A(0);
+    }
     A pv = INFINITY;
     int pi = -1;
-    for (int q = 0; q < rank_k; ++q) {
+    for (int q = 0; q < p.rank_k; ++q) {
       A bv = -INFINITY;
       int bi = INT_MAX;
-      for (int i = t; i < n; i += EP_THREADS) {
-        const A v = Num<T>::to_acc(a[(long)i * V + j]);
-        const bool after = v < pv || (v == pv && i > pi);
-        if (after && before(v, i, bv, bi)) { bv = v; bi = i; }
+#pragma unroll
+      for (int j = 0; j < EP_RL; ++j) {
+        const int r = r0 + lane + 32 * j;
+        const bool after = av[j] < pv || (av[j] == pv && r > pi);
+        if (r < r1 && after && before(av[j], r, bv, bi)) {
+          bv = av[j];
+          bi = r;
+        }
       }
-      block_argmax(bv, bi, shv, shi);
-      if (t == 0) {
-        same = same && top[j * rank_k + q] == bi;
-        top[j * rank_k + q] = bi;
+      for (int r = r0 + 32 * EP_RL + lane; r < r1; r += 32) {
+        const A v = Num<T>::to_acc(a[(long)r * V + c]);
+        const bool after = v < pv || (v == pv && r > pi);
+        if (after && before(v, r, bv, bi)) {
+          bv = v;
+          bi = r;
+        }
+      }
+      warp_first(bv, bi);
+      if (lane == 0) {
+        const long e = ((long)s * V + c) * p.rank_k + q;
+        p.cand_v[e] = (double)bv;
+        p.cand_i[e] = bi;
       }
       pv = bv;
       pi = bi;
     }
-    if (t == 0) {
-      const int sb = same ? stab[j] + 1 : 0;
-      stab[j] = sb;
-      stp = stp || sb >= stable_sweeps;
-    }
   }
-  if (t == 0) {
-    stop[j] = stp ? 1 : 0;
-    delta[j] = (double)dT;
-    __threadfence();
-    is_last = atomicAdd(&ctl[2], 1) == (int)gridDim.x - 1;
+}
+
+// entry q of slice s's candidate list for column c, (-inf, INT_MAX) past
+// the lists
+__device__ __forceinline__ void ep_cand(const EpArgs& p, int s, int c, int q,
+                                        double& v, int& i) {
+  v = -INFINITY;
+  i = INT_MAX;
+  if (s < p.nslices && q < p.rank_k) {
+    const long e = ((long)s * p.V + c) * p.rank_k + q;
+    v = __ldcg(p.cand_v + e);
+    i = __ldcg(p.cand_i + e);
+  }
+}
+
+// column c's top-k over the slices' sorted candidate lists (a k-way merge:
+// lane l holds the heads of slices l, l + 32, ... and the entry after each
+// head, loaded a round ahead), written to top[c]; returns (on every lane)
+// whether it equals the previous top-k
+__device__ bool ep_merge_topk(const EpArgs& p, int c) {
+  const int lane = threadIdx.x % 32, k = p.rank_k;
+  int* top = p.top + (long)c * k;
+  const int old = lane < k ? top[lane] : 0;  // the previous top-k's first 32
+  int pos[EP_HEADS], hi[EP_HEADS], ni[EP_HEADS];
+  double hv[EP_HEADS], nv[EP_HEADS];
+#pragma unroll
+  for (int j = 0; j < EP_HEADS; ++j) {
+    pos[j] = 0;
+    ep_cand(p, lane + 32 * j, c, 0, hv[j], hi[j]);
+    ep_cand(p, lane + 32 * j, c, 1, nv[j], ni[j]);
+  }
+  bool same = true;
+  for (int q = 0; q < k; ++q) {
+    double bv = -INFINITY;
+    int bi = INT_MAX;
+#pragma unroll
+    for (int j = 0; j < EP_HEADS; ++j) {
+      if (before(hv[j], hi[j], bv, bi)) {
+        bv = hv[j];
+        bi = hi[j];
+      }
+    }
+    warp_first(bv, bi);
+#pragma unroll
+    for (int j = 0; j < EP_HEADS; ++j) {
+      if (bi != INT_MAX && hi[j] == bi) {  // indices are unique: the winner's list moves on
+        hv[j] = nv[j];
+        hi[j] = ni[j];
+        ep_cand(p, lane + 32 * j, c, ++pos[j] + 1, nv[j], ni[j]);
+      }
+    }
+    const int prev = q < 32 ? __shfl_sync(0xffffffffu, old, q) : top[q];
+    same = same && prev == bi;
+    __syncwarp();
+    if (lane == 0) top[q] = bi;
+  }
+  return same;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(EP_THREADS) ep_finish_kernel(EpArgs p) {
+  using A = typename Num<T>::Acc;
+  constexpr int EC = 16 / (int)sizeof(T);
+  if (p.mode == 0 && !p.has_cond && p.ctl[0] == 0) return;
+  ep_count(p);
+  __shared__ double red[EP_THREADS * EC];
+  __shared__ A den[EP_MAXV], dena[EP_MAXV];
+  __shared__ bool is_last;
+  __shared__ int running;
+  const int s = blockIdx.x, t = threadIdx.x, V = p.V, ns = p.nslices;
+  const int lane = t % 32, w = t / 32;
+  const A eps = rnd<T>(A(1e-30));
+  for (int c = w; c < V; c += EP_WARPS) {
+    const double sh = ep_slices_sum(p.part, ns, V, c);
+    if (lane == 0) den[c] = rnd<T>(rnd<T>((A)sh) + eps);
+    if (p.mode == 1) {
+      const double sa = ep_slices_sum(p.part + (long)ns * V, ns, V, c);
+      if (lane == 0) dena[c] = rnd<T>(rnd<T>((A)sa) + eps);
+    }
   }
   __syncthreads();
-  if (is_last && t == 0) {
-    __threadfence();
-    volatile int* vstop = stop;
-    volatile int* vconv = conv;
-    const int k1 = ctl[1] + 1;
-    bool any_running = false;
-    for (int c = 0; c < V; ++c) {
-      int cv = vconv[c];
-      if (cv < 0 && vstop[c]) {
-        cv = k1;
-        vconv[c] = k1;
+
+  const int r0 = s * p.rows, r1 = min(p.n, r0 + p.rows);
+  const int count = (r1 - r0) * V;
+  const long base = (long)r0 * V;
+  const int B = ep_loaders<EC>(V);
+  const T* hr = static_cast<const T*>(p.hr) + base;
+  T* h = static_cast<T*>(p.h) + base;
+  T* a = static_cast<T*>(p.a) + base;
+  const bool vec = aligned16(hr) && aligned16(h) && aligned16(a);
+  double acc[EC];
+#pragma unroll
+  for (int u = 0; u < EC; ++u) acc[u] = 0.0;
+  if (t < B) {
+    for (int q = t; q * EC < count; q += B) {
+      T x[EC], y[EC];
+      ld_chunk<T, EC>(hr, q * EC, count, vec, x);
+      ld_chunk<T, EC>(h, q * EC, count, vec, y);
+#pragma unroll
+      for (int u = 0; u < EC; ++u) {
+        const A hn = rnd<T>(Num<T>::to_acc(x[u]) / den[(q * EC + u) % V]);
+        acc[u] += fabs((double)rnd<T>(hn - Num<T>::to_acc(y[u])));
+        y[u] = Num<T>::from_acc(hn);
       }
-      any_running = any_running || cv < 0;
+      if (p.mode == 0) {
+        st_chunk<T, EC>(h, q * EC, count, vec, y);
+      } else {
+        T z[EC];
+        ld_chunk<T, EC>(a, q * EC, count, vec, z);
+#pragma unroll
+        for (int u = 0; u < EC; ++u) {
+          z[u] = Num<T>::from_acc(Num<T>::to_acc(z[u]) / dena[(q * EC + u) % V]);
+        }
+        st_chunk<T, EC>(a, q * EC, count, vec, z);
+      }
     }
-    ctl[1] = k1;
-    ctl[2] = 0;
-    ctl[0] = (k1 < max_iter && any_running) ? 1 : 0;
+#pragma unroll
+    for (int u = 0; u < EC; ++u) red[t * EC + u] = acc[u];
+  }
+  __syncthreads();
+  ep_column_sums(red, B * EC, V, p.part + (2L * ns + s) * V);
+
+  // one thread publishes the CTA's sums and counts it, as a grid barrier
+  // does; the last CTA's thread fences again before the CTA reads the rest
+  __syncthreads();
+  if (t == 0) {
+    __threadfence();
+    is_last = atomicAdd(p.cnt, 1) == ns - 1;
+    if (is_last) __threadfence();
+  }
+  __syncthreads();
+  if (!is_last) return;
+  const int k1 = p.mode == 0 ? p.ctl[1] + 1 : 0;
+  if (t == 0) running = 0;
+  __syncthreads();
+  // per column (a warp each): residual, rank stability, stop, conv
+  for (int c = w; c < V; c += EP_WARPS) {
+    const A dT = rnd<T>((A)ep_slices_sum(p.part + 2L * ns * V, ns, V, c));
+    if (p.mode == 1) {
+      if (lane == 0) p.delta[c] = (double)dT;
+      continue;
+    }
+    bool stp = (double)dT <= p.tol;
+    if (p.rank_k > 0) {
+      const bool same = ep_merge_topk(p, c);
+      const int sb = same ? p.stab[c] + 1 : 0;
+      stp = stp || sb >= p.stable;
+      __syncwarp();
+      if (lane == 0) p.stab[c] = sb;
+    }
+    if (lane == 0) {
+      p.stop[c] = stp ? 1 : 0;
+      p.delta[c] = (double)dT;
+      if (p.conv[c] < 0) {
+        if (stp) {
+          p.conv[c] = k1;
+        } else {
+          running = 1;  // every writer stores 1
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (t == 0) {
+    if (p.mode == 0) {
+      const int flag = (k1 < p.max_iter && running) ? 1 : 0;
+      p.ctl[1] = k1;
+      p.ctl[0] = flag;
+      if (p.has_cond) cudaGraphSetConditional(p.cond, flag);
+    }
+    *p.cnt = 0;
   }
 }
 
 template <typename T>
-cudaError_t launch_ep(const void* hr, void* h, void* a, int n, int V,
-                      double tol, int rank_k, int stable_sweeps, int* top,
-                      int* stab, int* stop, int* conv, double* delta,
-                      int* ctl, int max_iter, int mode, cudaStream_t stream) {
-  sweep_epilogue_kernel<T><<<V, EP_THREADS, 0, stream>>>(
-      static_cast<const T*>(hr), static_cast<T*>(h), static_cast<T*>(a), n,
-      V, tol, rank_k, stable_sweeps, top, stab, stop, conv, delta, ctl,
-      max_iter, mode);
+cudaError_t ep_launch(const EpArgs& p, cudaStream_t s) {
+  ep_slice_kernel<T><<<p.nslices, EP_THREADS, 0, s>>>(p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ep_finish_kernel<T><<<p.nslices, EP_THREADS, 0, s>>>(p);
   return cudaGetLastError();
 }
+
+cudaError_t launch_epilogue(int dtype, const EpArgs& p, cudaStream_t s) {
+  if (p.V < 1 || p.V > EP_MAXV || p.nslices < 1 || p.nslices > 32 * EP_HEADS ||
+      p.rows % 16 != 0 || (long)p.rows * p.nslices < p.n) {
+    return cudaErrorInvalidValue;
+  }
+  switch (dtype) {
+    case kF64: return ep_launch<double>(p, s);
+    case kF32: return ep_launch<float>(p, s);
+    case kBF16: return ep_launch<__nv_bfloat16>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------------------------------------- K2
+//
+// K2 replaces the TPU loop bsr_converge_cols (src/repro/kernels/bsr_spmm.py,
+// a lax.while_loop around the Pallas K1) with one CUDA graph per plan. The
+// graph follows a step list (k2_steps in bsr_spmm.py, encoded as (op,
+// phase, arg) triples): a control kernel starts a phase and sets the WHILE
+// condition to k < max_iter; a conditional WHILE node runs the sweep (K1 on
+// L^T, K1 on L, the epilogue, whose last CTA sets the condition); the
+// ladder's bulk phase is cast to the full precision in between; a control
+// kernel sets conv = where(conv < 0, k, conv); one more sweep gives the
+// certificate. A graph is built for one call on that call's buffers (tol,
+// bulk tol, max_iter and stable_sweeps are kernel arguments), launched once
+// and destroyed. K1 and the epilogue count their launches on the device,
+// which the host reads once with the results. A sweep is bound by K1
+// re-reading both operators (together larger than L2); the graph removes
+// the host's launches between the kernels and the no-op sweeps a chunked
+// loop enqueued.
+
+enum StepOp { kReset = 0, kWhile = 1, kSpmm = 2, kEpilogue = 3, kCast = 4,
+              kFinish = 5, kCertificate = 6 };
+
+struct K2Operand {
+  const void* blocks;
+  const int* idx;
+  const int* row_ptr;
+  long long nblocks;
+};
+
+struct K2Phase {  // 0: full precision; 1: the ladder's bulk phase
+  K2Operand lt, lf;
+  void* h;
+  void* a;
+  void* hr;
+  const void* ca;
+  const void* ch;
+  const void* mask;
+  long long dtype;
+};
+
+struct K2Args {
+  K2Phase phase[2];
+  const long long* steps;  // n_steps (op, phase, arg) triples, on the host
+  long long n_steps;
+  int* ctl;
+  int* conv;
+  int* stop;
+  int* stab;
+  int* top;
+  double* delta;
+  double* res;
+  double* part;
+  double* cand_v;
+  int* cand_i;
+  int* ep_cnt;        // the epilogue's CTA counter
+  void* ws;           // K1's Scratch
+  int* cnt;
+  unsigned long long* launches;  // [K1, epilogue] kernels launched
+  long long n_pad, V, bs, rank_k, ep_rows, ep_slices, max_iter, stable_sweeps;
+  double tol, bulk_tol;
+};
+
+// a phase's start (mode 0; mode 1 also sets k = 0): conv -1, stab 0, top
+// -1, and the stop flag and the WHILE condition k < max_iter; mode 2 closes
+// the loop: conv = where(conv < 0, k, conv)
+__global__ void k2_control_kernel(int* ctl, int* conv, int* stab, int* top,
+                                  int V, int k_eff, long long max_iter,
+                                  int mode, unsigned long long cond) {
+  const int t = threadIdx.x;
+  if (mode == 2) {
+    for (int c = t; c < V; c += blockDim.x) {
+      if (conv[c] < 0) conv[c] = ctl[1];
+    }
+    return;
+  }
+  for (int e = t; e < V * k_eff; e += blockDim.x) top[e] = -1;
+  for (int c = t; c < V; c += blockDim.x) {
+    conv[c] = -1;
+    stab[c] = 0;
+  }
+  if (t == 0) {
+    if (mode == 1) ctl[1] = 0;
+    const int flag = ctl[1] < max_iter ? 1 : 0;
+    ctl[0] = flag;
+    cudaGraphSetConditional(cond, flag);
+  }
+}
+
+// the bulk phase's h, widened to the full precision (exact)
+template <typename Tlo, typename Thi>
+__global__ void k2_cast_kernel(const Tlo* lo, Thi* hi, long n) {
+  for (long e = (long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (long)gridDim.x * blockDim.x) {
+    hi[e] = Num<Thi>::from_acc((typename Num<Thi>::Acc)(double)Num<Tlo>::to_acc(lo[e]));
+  }
+}
+
+template <typename Tlo>
+cudaError_t launch_cast(int hi_dtype, const void* lo, void* hi, long n, cudaStream_t s) {
+  const int grid = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
+  const Tlo* l = static_cast<const Tlo*>(lo);
+  switch (hi_dtype) {
+    case kF64: k2_cast_kernel<<<grid, 256, 0, s>>>(l, static_cast<double*>(hi), n); break;
+    case kF32: k2_cast_kernel<<<grid, 256, 0, s>>>(l, static_cast<float*>(hi), n); break;
+    case kBF16: k2_cast_kernel<<<grid, 256, 0, s>>>(l, static_cast<__nv_bfloat16*>(hi), n); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+struct K2Builder {
+  const K2Args& g;
+  cudaGraphConditionalHandle cond[2] = {0, 0};
+
+  // K1 on L^T (h -> a, which 0) or L (a -> hr, which 1) of phase ph, every
+  // column group; attr_only sets the shared-memory attribute instead
+  cudaError_t spmm(int ph, int which, cudaStream_t s, bool attr_only) const {
+    const K2Phase& P = g.phase[ph];
+    const K2Operand& op = which == 0 ? P.lt : P.lf;
+    const int V = (int)g.V;
+    for (int col0 = 0; col0 < V; col0 += V_GROUP) {
+      const int v = V - col0 < V_GROUP ? V - col0 : V_GROUP;
+      const cudaError_t err = (cudaError_t)k1_group(
+          (int)P.dtype, (int)g.bs, op.blocks, op.idx, op.row_ptr,
+          (int)op.nblocks, (int)(g.n_pad / g.bs), which == 0 ? P.h : P.a,
+          which == 0 ? P.ch : P.ca, V, P.mask, which == 0 ? P.a : P.hr, V,
+          col0, v, g.ws, g.cnt, nullptr, g.launches, s, attr_only);
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  }
+
+  cudaError_t epilogue(int ph, int mode, cudaStream_t s) const {
+    const K2Phase& P = g.phase[ph];
+    EpArgs p{};
+    p.hr = P.hr;
+    p.h = P.h;
+    p.a = P.a;
+    p.ctl = g.ctl;
+    p.cnt = g.ep_cnt;
+    p.conv = g.conv;
+    p.stop = g.stop;
+    p.stab = g.stab;
+    p.top = g.top;
+    p.delta = mode == 0 ? g.delta : g.res;
+    p.part = g.part;
+    p.cand_v = g.cand_v;
+    p.cand_i = g.cand_i;
+    p.launches = g.launches + 1;
+    p.cond = cond[ph];
+    p.tol = ph == 0 ? g.tol : g.bulk_tol;
+    p.max_iter = g.max_iter;
+    p.stable = g.stable_sweeps;
+    p.n = (int)g.n_pad;
+    p.V = (int)g.V;
+    p.rows = (int)g.ep_rows;
+    p.nslices = (int)g.ep_slices;
+    p.rank_k = mode == 0 ? (int)g.rank_k : 0;
+    p.mode = mode;
+    p.has_cond = mode == 0 ? 1 : 0;
+    return launch_epilogue((int)P.dtype, p, s);
+  }
+
+  cudaError_t control(int mode, unsigned long long c, cudaStream_t s) const {
+    k2_control_kernel<<<1, 256, 0, s>>>(g.ctl, g.conv, g.stab, g.top, (int)g.V,
+                                        (int)g.rank_k, g.max_iter, mode, c);
+    return cudaGetLastError();
+  }
+
+  cudaError_t record(long long op, int ph, long long arg, cudaStream_t s) const {
+    switch (op) {
+      case kReset: return control(arg ? 1 : 0, cond[ph], s);
+      case kSpmm: return spmm(ph, (int)arg, s, false);
+      case kEpilogue: return epilogue(ph, 0, s);
+      case kFinish: return control(2, cond[0], s);
+      case kCertificate: return epilogue(0, 1, s);
+      case kCast: {
+        const long n = (long)(g.n_pad * g.V);
+        const void* lo = g.phase[1].h;
+        void* hi = g.phase[0].h;
+        const int hd = (int)g.phase[0].dtype;
+        switch (g.phase[1].dtype) {
+          case kF64: return launch_cast<double>(hd, lo, hi, n, s);
+          case kF32: return launch_cast<float>(hd, lo, hi, n, s);
+          case kBF16: return launch_cast<__nv_bfloat16>(hd, lo, hi, n, s);
+          default: return cudaErrorInvalidValue;
+        }
+      }
+      default: return cudaErrorInvalidValue;
+    }
+  }
+
+  // the step list captured on s (thread-local capture), each WHILE body
+  // captured on s2 into the conditional node's body graph
+  cudaError_t capture(cudaStream_t s, cudaStream_t s2) {
+    cudaStreamCaptureStatus st;
+    cudaGraph_t graph;
+    const cudaGraphNode_t* deps;
+    size_t nd;
+    cudaError_t err = cudaStreamGetCaptureInfo(s, &st, nullptr, &graph, &deps, &nd);
+    for (int ph = 0; ph < 2 && err == cudaSuccess; ++ph) {
+      if (g.phase[ph].h != nullptr) err = cudaGraphConditionalHandleCreate(&cond[ph], graph, 0, 0);
+    }
+    for (long long i = 0; i < g.n_steps && err == cudaSuccess; ++i) {
+      const long long* step = g.steps + 3 * i;
+      const int ph = (int)step[1];
+      if (ph < 0 || ph > 1) return cudaErrorInvalidValue;
+      if (step[0] != kWhile) {
+        err = record(step[0], ph, step[2], s);
+        continue;
+      }
+      const long long body = step[2];
+      if (body < 1 || i + body >= g.n_steps) return cudaErrorInvalidValue;
+      err = cudaStreamGetCaptureInfo(s, &st, nullptr, &graph, &deps, &nd);
+      if (err != cudaSuccess) return err;
+      cudaGraphNodeParams np = {};
+      np.type = cudaGraphNodeTypeConditional;
+      np.conditional.handle = cond[ph];
+      np.conditional.type = cudaGraphCondTypeWhile;
+      np.conditional.size = 1;
+      cudaGraphNode_t node;
+      err = cudaGraphAddNode(&node, graph, deps, nd, &np);
+      if (err == cudaSuccess) {
+        err = cudaStreamUpdateCaptureDependencies(s, &node, 1, cudaStreamSetCaptureDependencies);
+      }
+      if (err == cudaSuccess) {
+        err = cudaStreamBeginCaptureToGraph(s2, np.conditional.phGraph_out[0], nullptr,
+                                            nullptr, 0, cudaStreamCaptureModeThreadLocal);
+      }
+      if (err != cudaSuccess) return err;
+      for (long long j = 1; j <= body && err == cudaSuccess; ++j) {
+        const long long* b = g.steps + 3 * (i + j);
+        err = b[0] == kWhile ? cudaErrorInvalidValue : record(b[0], (int)b[1], b[2], s2);
+      }
+      cudaGraph_t captured = nullptr;
+      const cudaError_t end = cudaStreamEndCapture(s2, &captured);
+      if (err == cudaSuccess) err = end;
+      i += body;
+    }
+    return err;
+  }
+};
 
 }  // namespace
 
@@ -576,28 +1105,107 @@ int bsr_spmm_launch(int dtype, int bs, int vt, const void* blocks,
                     int n_brows, const void* x, const void* cin, int cin_cols,
                     const void* mask, void* y, int ld, int col0, int v,
                     void* ws, int* cnt, const int* active, void* stream) {
-  if (nblocks < 0 || n_brows <= 0) return cudaErrorInvalidValue;
+  if (vt != vt_of(v)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF64: return k1_by_bs<double>(bs, vt, K1_ARGS);
-    case kF32: return k1_by_bs<float>(bs, vt, K1_ARGS);
-    case kBF16: return k1_by_bs<__nv_bfloat16>(bs, vt, K1_ARGS);
-    default: return cudaErrorInvalidValue;
-  }
+  int err = k1_group(dtype, bs, blocks, idx, row_ptr, nblocks, n_brows, x,
+                     cin, cin_cols, mask, y, ld, col0, v, ws, cnt, active,
+                     nullptr, s, true);
+  if (err != cudaSuccess) return err;
+  return k1_group(dtype, bs, blocks, idx, row_ptr, nblocks, n_brows, x, cin,
+                  cin_cols, mask, y, ld, col0, v, ws, cnt, active, nullptr, s,
+                  false);
 }
 
+// one sweep's epilogue (mode 0, predicated on ctl[0]) or the certificate
+// (mode 1: delta gets the residual, a is normalized, ctl is not read) as
+// its two launches; cnt is 0 on entry and on exit; part (3, nslices, V) f64
+// and cand_v/cand_i (nslices, V, rank_k) are workspace
 int sweep_epilogue_launch(int dtype, const void* hr, void* h, void* a, int n,
-                          int V, double tol, int rank_k, int stable_sweeps,
-                          int* top, int* stab, int* stop, int* conv,
-                          double* delta, int* ctl, int max_iter, int mode,
+                          int V, int rows, int nslices, int rank_k, int mode,
+                          double tol, long long max_iter, long long stable,
+                          int* ctl, int* cnt, int* conv,
+                          int* stop, int* stab, int* top, double* delta,
+                          double* part, double* cand_v, int* cand_i,
                           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF64: return launch_ep<double>(hr, h, a, n, V, tol, rank_k, stable_sweeps, top, stab, stop, conv, delta, ctl, max_iter, mode, s);
-    case kF32: return launch_ep<float>(hr, h, a, n, V, tol, rank_k, stable_sweeps, top, stab, stop, conv, delta, ctl, max_iter, mode, s);
-    case kBF16: return launch_ep<__nv_bfloat16>(hr, h, a, n, V, tol, rank_k, stable_sweeps, top, stab, stop, conv, delta, ctl, max_iter, mode, s);
-    default: return cudaErrorInvalidValue;
+  EpArgs p{};
+  p.hr = hr;
+  p.h = h;
+  p.a = a;
+  p.ctl = ctl;
+  p.cnt = cnt;
+  p.conv = conv;
+  p.stop = stop;
+  p.stab = stab;
+  p.top = top;
+  p.delta = delta;
+  p.part = part;
+  p.cand_v = cand_v;
+  p.cand_i = cand_i;
+  p.n = n;
+  p.V = V;
+  p.rows = rows;
+  p.nslices = nslices;
+  p.rank_k = rank_k;
+  p.mode = mode;
+  p.tol = tol;
+  p.max_iter = max_iter;
+  p.stable = stable;
+  return launch_epilogue(dtype, p, static_cast<cudaStream_t>(stream));
+}
+
+long long k2_args_size() { return (long long)sizeof(K2Args); }
+
+// capture and instantiate the K2 graph of *args, a K2Args (its buffers
+// must outlive the graph's launch); *exec gets the executable graph, or null
+// on an error
+int k2_graph_build(const void* k2_args, void** exec) {
+  *exec = nullptr;
+  const K2Args* args = static_cast<const K2Args*>(k2_args);
+  K2Builder b{*args};
+  cudaError_t err = cudaSuccess;
+  for (int ph = 0; ph < 2 && err == cudaSuccess; ++ph) {
+    if (args->phase[ph].h == nullptr) continue;
+    for (int which = 0; which < 2 && err == cudaSuccess; ++which) {
+      err = b.spmm(ph, which, nullptr, true);
+    }
   }
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = nullptr, s2 = nullptr;
+  err = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  if (err == cudaSuccess) err = cudaStreamCreateWithFlags(&s2, cudaStreamNonBlocking);
+  cudaGraph_t graph = nullptr;
+  if (err == cudaSuccess) {
+    err = cudaStreamBeginCapture(s, cudaStreamCaptureModeThreadLocal);
+    if (err == cudaSuccess) {
+      err = b.capture(s, s2);
+      cudaStreamCaptureStatus st;
+      if (cudaStreamIsCapturing(s2, &st) == cudaSuccess && st != cudaStreamCaptureStatusNone) {
+        cudaGraph_t body = nullptr;
+        cudaStreamEndCapture(s2, &body);
+      }
+      const cudaError_t end = cudaStreamEndCapture(s, &graph);
+      if (err == cudaSuccess) err = end;
+    }
+  }
+  if (err == cudaSuccess) {
+    cudaGraphExec_t ge = nullptr;
+    err = cudaGraphInstantiate(&ge, graph, 0);
+    if (err == cudaSuccess) *exec = ge;
+  }
+  if (graph != nullptr) cudaGraphDestroy(graph);
+  if (s2 != nullptr) cudaStreamDestroy(s2);
+  if (s != nullptr) cudaStreamDestroy(s);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return err;
+}
+
+int k2_graph_launch(void* exec, void* stream) {
+  return cudaGraphLaunch(static_cast<cudaGraphExec_t>(exec),
+                         static_cast<cudaStream_t>(stream));
+}
+
+int k2_graph_destroy(void* exec) {
+  return cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
 }
 
 }  // extern "C"

@@ -10,7 +10,8 @@ runs the masked multi-column accelerated-HITS convergence loop:
               SpMV (``sparse.spmv``), a per-sweep torch loop.
 * ``bsr``   — the hand-written BSR kernels (``kernels.bsr_spmm``) after
               the blocking permutation; the loop runs on the device by
-              default (``kernels.bsr_converge_cols``), ``fused=False``
+              default (``kernels.bsr_converge_cols``, one CUDA graph per
+              batch), ``fused=False``
               keeps the host-driven loop as its parity reference.
 
 The mesh-``sharded`` backend is not ported yet (ROADMAP, Queue 1 item 8).
@@ -324,8 +325,8 @@ class BsrSweepBackend(SweepBackend):
     permutation (non-dangling pages first, degree-descending) so structural
     nonzeros cluster into dense (bs x bs) blocks, then each half-step is one
     K1 launch with the column's induced diagonal fused in. The loop runs on
-    the device by default (``kernels.bsr_converge_cols``: one host read of
-    the stop flag per chunk of sweeps); ``fused=False`` keeps the
+    the device by default (``kernels.bsr_converge_cols``: one CUDA graph
+    built, launched and read once per batch); ``fused=False`` keeps the
     host-driven loop, one host round trip per sweep, as its parity
     reference.
     """

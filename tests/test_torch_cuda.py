@@ -7,6 +7,7 @@ not installed:
 
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 """
+import gc
 import math
 
 import numpy as np
@@ -97,7 +98,7 @@ def test_k1_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rank_k", [0, 5])
+@pytest.mark.parametrize("rank_k", [0, 5, 10])
 def test_epilogue_matches_plain(cuda, rank_k):
     g, vecs = loop_inputs(2, 200, 5)
     h0, ca, ch, m = (torch.tensor(x, device=cuda).contiguous() for x in vecs)
@@ -108,7 +109,7 @@ def test_epilogue_matches_plain(cuda, rank_k):
     hr = K.bsr_scaled_matvec(*lf.operand, a, ca, bs=32, mask=m)
     outs = []
     for fn in (K.sweep_epilogue, K.sweep_epilogue_plain):
-        st = K.LoopState.start(torch.zeros(3, dtype=torch.int32,
+        st = K.LoopState.start(torch.zeros(2, dtype=torch.int32,
                                            device=cuda), 5, rank_k, 100)
         h = h0.clone()
         for _ in range(3):  # the second and third sweeps see unchanged a
@@ -119,18 +120,68 @@ def test_epilogue_matches_plain(cuda, rank_k):
     for f in ("ctl", "conv", "stop", "stab", "top"):
         assert torch.equal(getattr(sk, f), getattr(sp, f)), f
     ak, ap = a.clone(), a.clone()
-    rk = K.sweep_certificate(hr, hk, ak)
+    rk = K.sweep_certificate(hr, hk, ak, sk.ep)  # on the loop's workspace
     rp = K.sweep_certificate_plain(hr, hp, ap)
+    assert not sk.ep.cnt.any()
     assert (rk - rp).abs().max().item() <= 1e-15
     assert (ak - ap).abs().max().item() <= 1e-15
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "bfloat16"])
+@pytest.mark.parametrize("n,v,rank_k", [(1000, 5, 10), (4096, 8, 10),
+                                        (40, 20, 10), (20001, 3, 10),
+                                        (1000, 5, 40)])
+def test_epilogue_ties_and_ragged_slices(cuda, n, v, rank_k, dtype):
+    """The row-sliced epilogue on n rows that are not a multiple of its
+    slice (1000, 40 and 20001 rows, in slices of 16 and 160 rows) and on a
+    V that splits its 16-byte loads unevenly (3, 5, 20), with ``a`` full of
+    exact ties across and inside slices (values from a set of 4, every
+    other slice a copy of the one before): the slices' top-k lists (rows
+    past a lane's 4 in registers read from memory in slices of 160 rows)
+    merge to the plain version's stable sort at rank_k 10 and 40; h within
+    1e-15 (f64) or an ulp (bf16), ctl/conv/stop/stab/top equal over four
+    sweeps, the counter back at 0."""
+    rng = np.random.default_rng(n + v)
+    rows, slices = K.ep_slicing(n)
+    assert n % rows or n == 4096
+    dt = TDT[dtype]
+    hr = torch.tensor(rng.random((n, v))).to(cuda, dt)
+    a = torch.tensor(rng.integers(0, 4, (n, v)) / 4.0).to(cuda, dt)
+    for s in range(1, slices, 2):  # equal slices: ties across slices too
+        a[s * rows:(s + 1) * rows] = a[(s - 1) * rows:s * rows][
+            :max(0, min(rows, n - s * rows))]
+    h0 = torch.tensor(rng.random((n, v))).to(cuda, dt)
+    outs = []
+    for fn in (K.sweep_epilogue, K.sweep_epilogue_plain):
+        st = K.LoopState.start(torch.zeros(2, dtype=torch.int32,
+                                           device=cuda), v, rank_k, 100)
+        h = h0.clone()
+        for _ in range(4):
+            fn(hr, h, a, st, tol=1e-10, stable_sweeps=2, max_iter=100)
+        outs.append((h, st))
+    (hk, sk), (hp, sp) = outs
+    ulp = 1e-15 if dtype == "float64" else 2.0 ** -8
+    assert (hk.double() - hp.double()).abs().max().item() <= ulp
+    for f in ("ctl", "conv", "stop", "stab", "top"):
+        assert torch.equal(getattr(sk, f), getattr(sp, f)), f
+    assert not sk.ep.cnt.any()
+    ak, ap = a.clone(), a.clone()
+    rk = K.sweep_certificate(hr, hk, ak)
+    rp = K.sweep_certificate_plain(hr, hk, ap)
+    assert (rk - rp).abs().max().item() <= ulp * max(1.0, rp.abs().max()
+                                                     .item())
+    assert (ak.double() - ap.double()).abs().max().item() <= ulp
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bulk", [None, "bfloat16", "float32"])
 @pytest.mark.parametrize("rank_k", [0, 5])
 def test_k2_matches_plain(cuda, rank_k, bulk):
-    """The device loop vs the plain loop on the card: conv equal, h and a
-    within 1e-10 L1, and at most ceil(sweeps/CHUNK) + 1 flag reads."""
+    """The K2 graph vs the plain loop on the card: conv equal, h and a
+    within 1e-10 L1, one graph build, one host read, and K1 and the
+    epilogue launched 2 × (sweeps + 1) times, as the kernels counted
+    themselves on the device."""
     g, vecs = loop_inputs(5, 300, 6)
     args = [torch.tensor(x, device=cuda).contiguous() for x in vecs]
     ops = [pops.DeviceBSR.build(g, 64, transpose=t, dtype="float64",
@@ -150,8 +201,132 @@ def test_k2_matches_plain(cuda, rank_k, bulk):
     assert torch.equal(got[2], want[2]), (got[2], want[2])
     assert (got[0] - want[0]).abs().sum(0).max().item() <= 1e-10
     assert (got[1] - want[1]).abs().sum(0).max().item() <= 1e-10
-    assert counts["host_syncs"] <= math.ceil(int(got[2].max()) / K.CHUNK) + 1
-    assert counts["bsr_converge"] == 1 and counts["bsr_spmm"] > 0
+    k = int(want[2].max())
+    assert counts["host_syncs"] == 1 and counts["k2_graph_builds"] == 1
+    assert counts["bsr_converge"] == 1
+    assert counts["bsr_spmm"] == counts["sweep_epilogue"] == 2 * (k + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iter", [0, 1, 3])
+def test_k2_graph_at_max_iter(cuda, max_iter):
+    """max_iter 0 runs no sweep (the WHILE condition is tested before the
+    first iteration), 1 uses the budget up in the bf16 bulk phase (the
+    full-precision WHILE runs none), 3 cuts the full-precision phase: conv
+    equal to the plain loop, h and a within 1e-10 L1."""
+    g, vecs = loop_inputs(6, 300, 4)
+    args = [torch.tensor(x, device=cuda).contiguous() for x in vecs]
+    ops = [pops.DeviceBSR.build(g, 32, transpose=t, dtype="float64",
+                                device=cuda) for t in (True, False)]
+    kw = dict(bs=32, max_iter=max_iter, rank_k=3,
+              lt_lo=ops[0].astype("bfloat16").operand,
+              lf_lo=ops[1].astype("bfloat16").operand,
+              bulk_dtype="bfloat16", bulk_tol=1e3 * 2.0 ** -7)
+    K.reset_counters()
+    got = K.bsr_converge_cols(ops[0].operand, ops[1].operand, *args, 1e-10,
+                              **kw)
+    want = K.bsr_converge_cols_plain(ops[0].operand, ops[1].operand, *args,
+                                     1e-10, **kw)
+    assert torch.equal(got[2], want[2]) and (got[2] == max_iter).any()
+    assert (got[0] - want[0]).abs().sum(0).max().item() <= 1e-10
+    assert (got[1] - want[1]).abs().sum(0).max().item() <= 1e-10
+    assert K.counters.bsr_spmm == 2 * (max_iter + 1)
+
+
+@pytest.mark.cuda
+def test_k2_wide_batch_column_groups(cuda):
+    """V 20: K1 runs as two column groups inside the graph and the
+    epilogue's 16-byte loads straddle rows; conv equal to the plain loop,
+    h and a within 1e-10 L1, K1 launched 2 × 2 × (sweeps + 1) times."""
+    g, vecs = loop_inputs(9, 300, 20)
+    args = [torch.tensor(x, device=cuda).contiguous() for x in vecs]
+    ops = [pops.DeviceBSR.build(g, 64, transpose=t, dtype="float64",
+                                device=cuda).operand for t in (True, False)]
+    kw = dict(bs=64, max_iter=300, rank_k=3)
+    K.reset_counters()
+    got = K.bsr_converge_cols(*ops, *args, 1e-10, **kw)
+    want = K.bsr_converge_cols_plain(*ops, *args, 1e-10, **kw)
+    assert torch.equal(got[2], want[2])
+    assert (got[0] - want[0]).abs().sum(0).max().item() <= 1e-10
+    assert (got[1] - want[1]).abs().sum(0).max().item() <= 1e-10
+    assert K.counters.bsr_spmm == 4 * (int(want[2].max()) + 1)
+
+
+@pytest.mark.cuda
+def test_k2_each_call_builds_and_frees_its_graph(cuda):
+    """Each call builds its own graph over its own buffers: a second call
+    with another h0 and tol builds again, both match the plain loop, a
+    repeat gives the same bits, and once the results are dropped every
+    byte of device memory the calls took is back."""
+    g, vecs = loop_inputs(10, 300, 6)
+    args = [torch.tensor(x, device=cuda).contiguous() for x in vecs]
+    ops = [pops.DeviceBSR.build(g, 64, transpose=t, dtype="float64",
+                                device=cuda).operand for t in (True, False)]
+    kw = dict(bs=64, max_iter=300, rank_k=5)
+    h1 = torch.softmax(args[0] * 3.0, dim=0) * args[3]
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated(cuda)
+    K.reset_counters()
+    first = K.bsr_converge_cols(*ops, *args, 1e-10, **kw)
+    second = K.bsr_converge_cols(*ops, h1, *args[1:], 1e-8, **kw)
+    repeat = K.bsr_converge_cols(*ops, h1, *args[1:], 1e-8, **kw)
+    assert K.counters.k2_graph_builds == 3 and K.counters.host_syncs == 3
+    for x, y in zip(second, repeat):
+        assert torch.equal(x, y)
+    for got, h, tol in ((first, args[0], 1e-10), (second, h1, 1e-8)):
+        want = K.bsr_converge_cols_plain(*ops, h, *args[1:], tol, **kw)
+        assert torch.equal(got[2], want[2])
+        assert (got[0] - want[0]).abs().sum(0).max().item() <= 1e-10
+    del first, second, repeat, got, want, x, y
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) <= base
+
+
+def bsr_batches(cuda):
+    """A bsr backend, a batch of 4 queries and the same batch after a
+    weight-only delta (20 of its union's edges reweighted by 2.0)."""
+    g = generate_webgraph(WebGraphSpec(900, 9000, 0.4, seed=4))
+    rng = np.random.default_rng(2)
+    qs = [rng.choice(g.n_nodes, size=5, replace=False) for _ in range(4)]
+    svc = RankService(g, RankServiceConfig(device="cuda", backend="bsr",
+                                           v_max=4, bsr_block=64))
+    job = PipelineJob(queries=[svc.validate_roots(q) for q in qs],
+                      refresh=True)
+    pre = svc.pipeline.assemble(job).batch
+    fs = svc.extractor.extract_union([svc.extractor.extract(q) for q in qs])
+    pick = np.random.default_rng(5).choice(fs.graph.n_edges, 20,
+                                           replace=False)
+    svc.apply_edge_delta(reweights=[
+        (int(fs.nodes[fs.graph.src[i]]), int(fs.nodes[fs.graph.dst[i]]), 2.0)
+        for i in pick])
+    post = svc.pipeline.assemble(job).batch
+    return make_backend("bsr", bsr_block=64, device=cuda), pre, post
+
+
+@pytest.mark.cuda
+def test_k2_patched_plan_sweeps_through_a_graph(cuda):
+    """A plan's repeat sweeps give the same bits (a graph each); a plan
+    patched after a weight-only delta sweeps through a graph over its new
+    blocks and matches the CPU backend on the same batch."""
+    be, pre, post = bsr_batches(cuda)
+    plan = be.plan(pre)
+    K.reset_counters()
+    first = be.sweep(plan, pre)
+    repeat = be.sweep(plan, pre)
+    assert K.counters.k2_graph_builds == 2 and K.counters.host_syncs == 2
+    for x, y in zip(first, repeat):
+        assert np.array_equal(x, y)
+    patched = be.patch(plan, post)
+    assert patched is not None
+    got = be.sweep(patched, post)
+    assert K.counters.k2_graph_builds == 3
+    cpu = make_backend("bsr", bsr_block=64, device="cpu")
+    want = cpu.sweep(cpu.plan(post), post)
+    assert np.array_equal(got[2], want[2])
+    assert np.abs(got[0] - want[0]).sum(axis=0).max() <= 1e-10
+    assert np.abs(got[1] - want[1]).sum(axis=0).max() <= 1e-10
 
 
 @pytest.mark.cuda
@@ -470,7 +645,7 @@ def test_k1_inactive_flag_leaves_y_and_counters(cuda):
 
 @pytest.mark.cuda
 def test_k2_long_run_reuses_one_scratch(cuda, monkeypatch):
-    """24 sweeps (an unreachable tolerance) of the device loop: one Scratch
+    """24 sweeps (an unreachable tolerance) of the K2 graph: one Scratch
     made for the whole call, conv equal and h, a within 1e-10 L1 of the
     plain loop, the same bits on a second run."""
     made = []

@@ -5,7 +5,6 @@ On the CPU every wrapper runs its plain version because its tensors lie on
 the CPU; ``tests/test_torch_cuda.py`` holds the CUDA kernels to the same
 plain versions on a card.
 """
-import math
 import os
 import subprocess
 import sys
@@ -428,15 +427,14 @@ def test_k2_stops_at_max_iter(oracle):
     assert np.abs(got[1] - want[1]).sum() <= 1e-12
 
 
-@pytest.mark.parametrize("bulk", [None, "bfloat16", "float32"])
-@pytest.mark.parametrize("rank_k", [0, 4])
-def test_chunked_device_loop_equals_plain_loop(rank_k, bulk):
-    """The device loop's control flow (sweeps enqueued CHUNK at a time,
-    every step predicated on the device flag, one flag read per chunk),
-    rehearsed with the plain versions in place of the kernels, returns the
-    plain per-sweep loop's results bit for bit and reads the flag at most
-    ceil(sweeps / CHUNK) + 1 times per phase pair."""
-    g, vecs, perm, inv = loop_inputs(7, 70, 4)
+def rehearse_against_plain(rank_k, bulk, max_iter, seed=7):
+    """K2's graph rehearsed on the CPU (``k2_rehearse``: the step list the
+    builder captures, interpreted with the plain versions, each WHILE
+    testing its condition before every iteration) against the plain
+    per-sweep loop: equal bit for bit, and the steps ran as often as the
+    card launches them (K1 twice per sweep and for the certificate).
+    Returns the steps run per (op, phase)."""
+    g, vecs, perm, inv = loop_inputs(seed, 70, 4)
     pg_ = from_reference(g)
     lt = pops.DeviceBSR.build(pg_, 32, transpose=True, dtype="float64",
                               device="cpu")
@@ -448,20 +446,58 @@ def test_chunked_device_loop_equals_plain_loop(rank_k, bulk):
                                             lf.astype(bulk).operand)
     bulk_tol = 0.0 if bulk is None else max(1e-10, 1e3 * torch.finfo(
         TDT[bulk]).eps)
+    kw = dict(bs=32, max_iter=max_iter, rank_k=rank_k, lt_lo=lo[0],
+              lf_lo=lo[1], bulk_tol=bulk_tol, bulk_dtype=bulk)
     common = (lt.operand, lf.operand, *args, 1e-10)
-    plain = K.bsr_converge_cols_plain(*common, bs=32, max_iter=300,
-                                      rank_k=rank_k, lt_lo=lo[0],
-                                      lf_lo=lo[1], bulk_tol=bulk_tol,
-                                      bulk_dtype=bulk)
+    plain = K.bsr_converge_cols_plain(*common, **kw)
     K.reset_counters()
-    chunked = K._converge_chunked(*common, 32, torch.float64, 300, rank_k,
-                                  2, lo[0], lo[1], bulk_tol, bulk,
-                                  ops=K._PLAIN_OPS)
-    for x, y in zip(chunked, plain):
+    got, runs = K.k2_rehearse(*common, **kw)
+    for x, y in zip(got, plain):
         assert torch.equal(x, y)
-    sweeps = int(plain[2].max())
-    assert K.counters.bsr_converge == 1
-    assert K.counters.host_syncs <= math.ceil(sweeps / K.CHUNK) + 1
+    # the last column to stop (or every column at max_iter) holds k
+    k = int(plain[2].max())
+    count = {op: sum(n for (o, _), n in runs.items() if o == op)
+             for op in ("spmm", "epilogue", "reset", "finish",
+                        "certificate")}
+    assert count["spmm"] == 2 * (k + 1) and count["epilogue"] == k
+    assert count["certificate"] == count["finish"] == 1
+    assert count["reset"] == (2 if bulk else 1)
+    assert K.counters.as_dict() == dict.fromkeys(K.counters.as_dict(), 0)
+    return runs, k
+
+
+@pytest.mark.parametrize("bulk", [None, "bfloat16", "float32"])
+@pytest.mark.parametrize("rank_k", [0, 4])
+def test_chunked_device_loop_equals_plain_loop(rank_k, bulk):
+    """The graph's step list, rehearsed with the plain versions, equals
+    the plain loop (see ``rehearse_against_plain``)."""
+    _, k = rehearse_against_plain(rank_k, bulk, 300)
+    assert 0 < k < 300
+
+
+@pytest.mark.parametrize("case,bulk", [
+    ("max_iter 0", None), ("max_iter 0", "bfloat16"),
+    ("bulk phase", "bfloat16"), ("bulk phase", "float32"),
+    ("mid-phase", None), ("mid-phase", "float32")])
+def test_device_loop_rehearsal_at_max_iter(case, bulk):
+    """Where max_iter cuts the loop: at 0 no WHILE body runs and the
+    certificate still does; used up by the ladder's bulk phase, the
+    full-precision WHILE runs no sweep (its condition is tested before
+    the first iteration); cut in the middle of the last phase, k ends at
+    max_iter."""
+    free, k_free = rehearse_against_plain(4, bulk, 300)
+    bulk_sweeps = free.get(("epilogue", "lo"), 0)
+    if case == "max_iter 0":
+        max_iter = 0
+    elif case == "bulk phase":
+        max_iter = max(1, bulk_sweeps - 1)
+    else:
+        assert free[("epilogue", "hi")] >= 2
+        max_iter = k_free - 1
+    runs, k = rehearse_against_plain(4, bulk, max_iter)
+    assert k == max_iter
+    if case != "mid-phase":
+        assert runs.get(("epilogue", "hi"), 0) == 0
 
 
 def test_wrappers_count_nothing_on_the_cpu():
@@ -472,7 +508,7 @@ def test_wrappers_count_nothing_on_the_cpu():
     run_port_loop(g, vecs, perm, inv, 16, 0, None, 1e-10, 50)
     assert K.counters.as_dict() == {"bsr_spmm": 0, "sweep_epilogue": 0,
                                     "bsr_converge": 0, "host_syncs": 0,
-                                    "seg_matmul": 0}
+                                    "k2_graph_builds": 0, "seg_matmul": 0}
 
 
 if __name__ == "__main__":
