@@ -45,6 +45,22 @@ Phases (any failure exits non-zero and prints no result line):
    patch time beside a cold plan of the same union;
 3c. the paper's whole-graph ``accel_hits`` and ``qi_hits`` on britannica,
    f64, tol 1e-10, on the card against the same calls on the CPU;
+3d. the serving periphery on the main path's configuration: (a) a Zipf
+   stream (``launch.serve_rank.zipf_query_stream``, seed 0, 48 requests
+   of 50 roots) through ``svc.queue(deadline_ms=5)`` with Poisson
+   arrivals, two priority classes and an SLA each; every served query
+   held to a cold CPU ranking of its root set (1e-10 L1), class 0 sheds
+   nothing, one K2 graph and one host read per swept batch; q/s and
+   p50/p95 per class; (b) restart from the spill: a card service serves
+   the 3 batches and flushes, a second restores its entries (the repeat
+   stream all hits), a third with the vectors cleared sweeps through the
+   restored plans to the first's bits; a built plan against a restored
+   one (npz read + H2D) of the same union; a spill dir the port wrote on
+   the CPU restored on the card; (c) ``python -m
+   repro_torch.launch.serve_rank`` as a subprocess (queued frontend,
+   ``--stats-port 0``, a spill dir, a 1-edge ``--delta-file``): /healthz,
+   SIGHUP rolls the delta mid-stream, SIGTERM drains to exit 0, and a
+   relaunch on the spill dir restores entries;
 4. a ``{"kernels": [...]}`` line, then the contract's last line.
 
 It imports torch, numpy and the port only. K1's and K3's ``ms`` is the
@@ -794,6 +810,9 @@ def main():
               f"included), {t_cpu:.1f} ms on the host CPU; matches the CPU "
               f"run: L1 {l1:.2e}, iters equal", flush=True)
 
+    # ------------------------------------------- 3d. serving periphery
+    periphery(g, queries, cfg, timed)
+
     # ---------------------------------------------------- 4. result lines
     kernels = [
         dict(name="bsr_spmm", route="cuda",
@@ -840,6 +859,376 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def served_l1(a, b):
+    return max(np.abs(a.authority - b.authority).sum(),
+               np.abs(a.hub - b.hub).sum())
+
+
+def periphery(g, queries, cfg, timed):
+    """Phase 3d: the queued frontend, the restart spill and the launcher
+    on britannica at the main path's configuration. Any failed check
+    exits non-zero; temporary spill dirs go at the end."""
+    import shutil
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_spill_"))
+    try:
+        queued_phase(g, cfg)
+        spill_phase(g, queries, cfg, timed, tmp)
+        launcher_phase(g, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def queued_phase(g, cfg):
+    """(a) A Zipf stream (seed 0, 48 requests of 50 roots) submitted one
+    at a time through ``svc.queue(deadline_ms=5)`` with Poisson arrivals,
+    a quarter of them best effort, each with an SLA. Every served query
+    is held to a cold CPU ranking of its root set: <= 1e-10 L1 on
+    authority and hub, iters not compared (a batch's make-up, and so a
+    column's warm or cold start, depends on arrival timing). Class 0 sheds
+    nothing; K2 runs one graph and one host read per swept batch, with
+    2 x (sweeps + 1) K1 and epilogue launches."""
+    import torch
+    from repro_torch.kernels import bsr_spmm as K
+    from repro_torch.launch.serve_rank import zipf_query_stream
+    from repro_torch.serve import RankService, RankServiceConfig
+    rng = np.random.default_rng(SEED)
+    stream = zipf_query_stream(rng, g.n_nodes, 48, 50)
+    gaps = rng.exponential(1.0 / 200.0, len(stream))  # 200 q/s offered
+    pris = (rng.uniform(size=len(stream)) < 0.25).astype(int)
+    sla_ms = 2000.0
+    svc = RankService(g, RankServiceConfig(device="cuda", **cfg))
+    torch.cuda.synchronize()
+    K.reset_counters()
+    q = svc.queue(deadline_ms=5)
+    t0 = time.perf_counter()
+    try:
+        tickets = []
+        for roots, gap, pri in zip(stream, gaps, pris):
+            time.sleep(gap)
+            tickets.append(q.submit(roots, priority=int(pri),
+                                    deadline_ms=sla_ms))
+        got = [t.result(timeout=300) for t in tickets]
+        wall = time.perf_counter() - t0
+    finally:
+        q.close(wait=False)
+        q._thread.join(timeout=300)
+    check(not q._thread.is_alive(), "queued: the dispatcher did not stop")
+    q.flush()
+    counts = K.counters.as_dict()
+    swept, sweeps = svc.pipeline.stats["swept"], svc.stats["sweeps"]
+    want_k1 = 2 * (sweeps + swept)
+    check(counts["bsr_converge"] == counts["host_syncs"] == swept >= 1
+          and counts["bsr_spmm"] == counts["sweep_epilogue"] == want_k1,
+          f"queued: {swept} swept batches of {sweeps} sweeps ran as "
+          f"{counts}, not one K2 graph per batch with {want_k1} K1 launches")
+    qs = q.snapshot_stats()
+    cls = qs["classes"]
+    check(cls.get(0, {}).get("shed", 0) == 0, f"queued: class 0 shed {cls}")
+    # every served root set against a cold CPU ranking of it (warm starts
+    # off), one column each
+    served = [(r, x) for r, x in zip(got, stream) if r.status != "shed"]
+    distinct = {}
+    for r, x in served:
+        distinct.setdefault(r.key, x)
+    cpu = RankService(g, RankServiceConfig(device="cpu", warm_min_overlap=2.0,
+                                           **cfg))
+    want = dict(zip(distinct, cpu.rank(list(distinct.values()))))
+    worst = 0.0
+    for r, x in served:
+        o = want[r.key]
+        l1 = served_l1(r, o)
+        worst = max(worst, l1)
+        check(np.array_equal(r.nodes, o.nodes) and np.isfinite(r.authority)
+              .all() and l1 <= 1e-10,
+              f"queued query {r.key[:12]} ({r.status}): L1 {l1:.3e} against "
+              f"the cold CPU ranking")
+    statuses = {st: sum(r.status == st for r in got)
+                for st in ("hit", "warm", "cold", "shed")}
+    print(f"[queued] {len(stream)} requests ({len(distinct)} distinct root "
+          f"sets) through svc.queue(deadline_ms=5), Poisson arrivals at 200 "
+          f"q/s offered, SLA {sla_ms:.0f} ms, class 1 (best effort) "
+          f"{int(pris.sum())}: {wall * 1e3:.1f} ms wall, "
+          f"{len(stream) / wall:.1f} q/s; {statuses}; {qs['batches']} "
+          f"batches (vmax {qs['flush_vmax']} / deadline "
+          f"{qs['flush_deadline']} / close {qs['flush_close']}), "
+          f"{qs['coalesced']} coalesced, shed {qs['shed']}, deadline misses "
+          f"{qs['deadline_miss']}, degraded {qs['degraded']}; counters "
+          f"{counts}", flush=True)
+    for pri, c in cls.items():
+        print(f"[queued] class {pri}: {c['submitted']} submitted / "
+              f"{c['served']} served / {c['shed']} shed, p50 {c['p50_ms']} "
+              f"ms p95 {c['p95_ms']} ms")
+    print(f"[queued] every served query matches a cold CPU ranking of its "
+          f"root set: max L1 {worst:.2e}", flush=True)
+
+
+def spill_phase(g, queries, cfg, timed, tmp):
+    """(b) Restart from the spill: service A (card) serves the main path's
+    3 batches and flushes; B on the same dir restores A's entries and
+    serves the repeat stream as hits; C finds the plans on disk but not
+    the vectors (cleared) and sweeps through restored plans to A's bits.
+    A built plan of the first union against a restored one (npz read +
+    H2D); then a spill dir the port wrote on the CPU restores on the card
+    (a hit, then the plans)."""
+    import torch
+    from repro_torch.kernels import bsr_spmm as K
+    from repro_torch.serve import (BsrSweepBackend, PipelineJob, PlanSpill,
+                                   RankService, RankServiceConfig)
+
+    def card(d, **kw):
+        return RankService(g, RankServiceConfig(
+            device="cuda", spill_dir=str(d), **cfg, **kw))
+
+    def plan_ms(svc):
+        last = max(t[0] for t in svc.pipeline.trace)
+        return [round((t1 - t0) * 1e3, 4) for run, j, stage, t0, t1
+                in svc.pipeline.trace if run == last and stage == "plan"]
+
+    a = card(tmp / "card")
+    first = a.rank(queries)
+    a.flush_spill()
+    check(a.stats["plan_spilled"] == a.stats["plan_misses"] == 3,
+          f"spill: service A spilled {a.stats['plan_spilled']} of "
+          f"{a.stats['plan_misses']} built plans")
+    b = card(tmp / "card")
+    check(b.stats["spill_restored"] == len(a._cache) == len(queries),
+          f"spill: B restored {b.stats['spill_restored']} of A's "
+          f"{len(a._cache)} entries")
+    hits = b.rank(queries)
+    check(all(r.status == "hit" and np.array_equal(r.authority, f.authority)
+              for r, f in zip(hits, first)), "spill: B's repeat stream is "
+          "not all hits with A's vectors")
+    c = card(tmp / "card")
+    c.clear_result_cache()  # plans on disk, vectors not
+    torch.cuda.synchronize()
+    K.reset_counters()
+    again = c.rank(queries)
+    torch.cuda.synchronize()
+    counts = K.counters.as_dict()
+    check(c.stats["plan_restored"] == 3 and c.stats["plan_misses"] == 0,
+          f"spill: C restored {c.stats['plan_restored']} plans, built "
+          f"{c.stats['plan_misses']}")
+    check(counts["bsr_converge"] == counts["host_syncs"] == 3,
+          f"spill: C's batches ran as {counts}")
+    for r, f in zip(again, first):
+        check(r.status == f.status and r.iters == f.iters
+              and np.array_equal(r.authority, f.authority)
+              and np.array_equal(r.hub, f.hub),
+              f"spill: a restored plan's result differs from A's "
+              f"({r.status} {r.iters} vs {f.status} {f.iters})")
+    snap = a.telemetry_snapshot()
+    print(f"[spill] A: 3 batches, {a.stats['plan_spilled']} plans and "
+          f"{a.stats['spill_writes']} vectors spilled, plan stage ms "
+          f"(build + write-through) {plan_ms(a)}; spill.write_ms "
+          f"{snap['service.spill.write_ms']}; B: restored "
+          f"{b.stats['spill_restored']} entries, 24/24 hits; C: vectors "
+          f"cleared, {c.stats['plan_restored']} plans restored, 0 built, "
+          f"plan stage ms (npz read + H2D) {plan_ms(c)}, results equal to "
+          f"A's bit for bit; C spill.read_ms "
+          f"{c.telemetry_snapshot()['service.spill.read_ms']}", flush=True)
+
+    # a built plan of the first union against a restored one, timed alone
+    probe = RankService(g, RankServiceConfig(device="cuda", **cfg))
+    batch = probe.pipeline.assemble(PipelineJob(
+        queries=[probe.validate_roots(x) for x in queries[:8]])).batch
+    be = BsrSweepBackend(bs=128, device="cuda")
+    built_ms, read_ms, h2d_ms = [], [], []
+    ps = PlanSpill(str(tmp / "probe"))
+    for _ in range(3):
+        plan, ms = timed(lambda: be.plan(batch))
+        built_ms.append(round(ms, 4))
+    ps.put(("probe",), *be.plan_arrays(plan))
+    for _ in range(3):
+        rec, ms = timed(lambda: ps.get(("probe",)))
+        read_ms.append(round(ms, 4))
+        back, ms = timed(lambda: be.plan_restore(plan.key, *rec))
+        h2d_ms.append(round(ms, 4))
+    check(all(torch.equal(getattr(back, o).blocks, getattr(plan, o).blocks)
+              for o in ("lt", "lfwd")), "spill: a restored plan's blocks "
+          "differ from the built plan's")
+    mb = sum(x.nbytes for x in rec[0].values()) / 1e6
+    # where the restore's H2D step goes: the host copy ``from_arrays``
+    # makes of each block array, and the pageable copies to the card
+    blocks = [rec[0]["lt_blocks"], rec[0]["lfwd_blocks"]]
+    copies, ms = timed(lambda: [np.array(x, order="C") for x in blocks])
+    _, ms_h2d = timed(lambda: [torch.from_numpy(x).to("cuda")
+                               for x in copies])
+    print(f"[spill] first union, alone: built plan (permutation + to_bsr + "
+          f"H2D) ms {built_ms}; restored plan: npz read ms {read_ms} + "
+          f"H2D ms {h2d_ms} ({mb:.1f} MB of arrays); of the H2D step, the "
+          f"block arrays' host copy {ms:.4f} ms and their pageable copy "
+          f"to the card {ms_h2d:.4f} ms", flush=True)
+
+    # cross-package direction that the card can run: the port on the CPU
+    # writes, the card restores a vector and the plans
+    host = RankService(g, RankServiceConfig(
+        device="cpu", spill_dir=str(tmp / "cpu"), **cfg))
+    want = host.rank(queries[:8])
+    d = card(tmp / "cpu")
+    check(d.stats["spill_restored"] == 8, f"spill: the card restored "
+          f"{d.stats['spill_restored']} of the CPU's 8 entries")
+    hit = d.rank([queries[0]])[0]
+    check(hit.status == "hit" and np.array_equal(hit.authority,
+                                                 want[0].authority),
+          "spill: the CPU-written entry was not served as a hit")
+    d.clear_result_cache()
+    got = d.rank(queries[:8])
+    check(d.stats["plan_restored"] == 1 and d.stats["plan_misses"] == 0,
+          f"spill: the card restored {d.stats['plan_restored']} CPU plans")
+    worst = max(served_l1(r, o) for r, o in zip(got, want))
+    check(worst <= 1e-10 and all(r.iters == o.iters
+                                 for r, o in zip(got, want)),
+          f"spill: the CPU-written plan swept on the card: L1 {worst:.3e}")
+    print(f"[spill] a spill dir the port wrote on the CPU: 8 entries "
+          f"restored on the card, a hit equal to the CPU's vector, the plan "
+          f"restored and swept on the card: max L1 {worst:.2e} against the "
+          f"CPU, iters equal", flush=True)
+
+
+def launcher_phase(g, tmp):
+    """(c) ``python -m repro_torch.launch.serve_rank`` as a subprocess:
+    queued frontend on britannica, stats on an ephemeral port, a spill dir
+    and a delta file. Probe /healthz, SIGHUP (a 1-edge reweight inside the
+    first request's union), SIGTERM: exit 0 with the delta roll, drain and
+    SLA lines; then a relaunch on the spill dir restores entries. Every
+    wait has a timeout; the subprocess is killed on any failure."""
+    import queue as _queue
+    import signal
+    import threading
+    import urllib.request
+    from repro_torch.graph import SubgraphExtractor
+    from repro_torch.launch.serve_rank import zipf_query_stream
+    stream = zipf_query_stream(np.random.default_rng(SEED), g.n_nodes, 1, 50)
+    fs = SubgraphExtractor(g, 32, 32).extract(np.unique(stream[0]))
+    u, v = int(fs.nodes[fs.graph.src[0]]), int(fs.nodes[fs.graph.dst[0]])
+    delta = tmp / "delta.json"
+    delta.write_text(json.dumps({"reweights": [[u, v, 2.0]]}))
+    spill = tmp / "launcher"
+    base = [sys.executable, "-m", "repro_torch.launch.serve_rank",
+            "--dataset", "britannica", "--scale", "1.0", "--backend", "bsr",
+            "--v", "8", "--roots", "50", "--seed", str(SEED),
+            "--spill-dir", str(spill)]
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    args = base + ["--requests", "400", "--frontend", "queued",
+                   "--arrival-qps", "40", "--deadline-ms", "5",
+                   "--low-pri-frac", "0.25", "--sla-ms", "2000",
+                   "--stats-port", "0", "--delta-file", str(delta)]
+    lines, seen = _queue.Queue(), []
+    err = open(tmp / "launcher.err", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(args, stdout=subprocess.PIPE, stderr=err,
+                            text=True, env=env, cwd=ROOT)
+
+    def pump():
+        for x in proc.stdout:
+            lines.put(x.rstrip("\n"))
+        lines.put(None)
+
+    def wait_for(prefix, timeout):
+        end = time.monotonic() + timeout
+        while True:
+            left = end - time.monotonic()
+            if left <= 0:
+                fail(f"launcher: no '{prefix}' line in {timeout} s; "
+                     f"last lines {seen[-8:]}")
+            try:
+                x = lines.get(timeout=left)
+            except _queue.Empty:
+                continue
+            if x is None:
+                fail(f"launcher exited before '{prefix}': {seen[-8:]} "
+                     f"{(tmp / 'launcher.err').read_text()[-2000:]}")
+            seen.append(x)
+            if x.startswith(prefix):
+                return x
+
+    def get(port, path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=30) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def served_by(port, n, timeout=120):
+        """Wait until the service has served n queries; returns the count."""
+        end = time.monotonic() + timeout
+        while True:
+            got = json.loads(get(port, "/stats.json")[1])["service"][
+                "service.queries"]
+            if got >= n:
+                return got
+            if time.monotonic() > end or proc.poll() is not None:
+                fail(f"launcher: {got} queries served, waited for {n}")
+            time.sleep(0.1)
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        port = int(wait_for("stats:", 300).rsplit(":", 1)[1])
+        wait_for("serving:", 120)
+        t_up = time.perf_counter() - t0
+        health = get(port, "/healthz")
+        check(health == (200, b"ok"), f"launcher: /healthz gave {health}")
+        served_before = served_by(port, 8)  # the roll comes mid-stream
+        proc.send_signal(signal.SIGHUP)
+        roll = wait_for("delta roll:", 120)
+        check("admission re-opened" in roll, f"launcher: {roll}")
+        stats = json.loads(get(port, "/stats.json")[1])
+        served_after = served_by(port, stats["service"]["service.queries"]
+                                 + 8)  # and admission is open again
+        check(stats["queue"]["queue.drains"] == 1,
+              f"launcher: /stats.json counts {stats['queue']['queue.drains']}"
+              " drains after the roll")
+        proc.send_signal(signal.SIGTERM)
+        drain = wait_for("drain:", 120)
+        rest, end = [], time.monotonic() + 180
+        while True:  # everything up to the process's exit
+            check(time.monotonic() < end, f"launcher: still printing after "
+                  f"SIGTERM: {rest[-8:]}")
+            try:
+                x = lines.get(timeout=1)
+            except _queue.Empty:
+                continue
+            if x is None:
+                break
+            rest.append(x)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        err.close()
+    check(rc == 0, f"launcher exited {rc}: "
+          f"{(tmp / 'launcher.err').read_text()[-2000:]}")
+    sla = [x for x in rest if x.startswith("sla:")]
+    classes = [x for x in rest if x.startswith("  class")]
+    check(bool(sla) and any(x.startswith("  class 0:") and "/ 0 shed" in x
+                            for x in classes),
+          f"launcher: no sla line, or class 0 shed something: {rest}")
+    print(f"[launcher] up in {t_up:.1f} s (imports, britannica, warm-up "
+          f"batch); /healthz 200 ok on port {port}; SIGHUP after "
+          f"{served_before} served: {roll}; {served_after} served after it; "
+          f"SIGTERM: {drain}; "
+          f"{sla[0]}; "
+          + "; ".join(x.strip() for x in classes), flush=True)
+    for x in rest:
+        if x.startswith(("queue:", "served", "cache:", "plans:",
+                         "latency:")):
+            print(f"[launcher] {x}")
+    r = subprocess.run(base + ["--requests", "8"], capture_output=True,
+                       text=True, env=env, cwd=ROOT, timeout=600)
+    check(r.returncode == 0, f"launcher relaunch exited {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    restored = [x for x in r.stdout.splitlines()
+                if x.startswith("spill: restored")]
+    check(bool(restored) and int(restored[0].split()[2]) >= 1,
+          f"launcher relaunch restored nothing: {r.stdout[-1500:]}")
+    print(f"[launcher] relaunch on the spill dir: {restored[0]}; "
+          + "; ".join(x for x in r.stdout.splitlines()
+                      if x.startswith(("cache:", "plans:"))), flush=True)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from ..graph.structure import BSR, Graph, to_bsr
-from ..runtime import resolve_device, torch_dtype
+from ..runtime import from_host, resolve_device, torch_dtype
 from .bsr_spmm import BsrOperand, bsr_converge_cols, bsr_scaled_matvec
 from .build import Scratch
 from .seg_matmul import seg_matmul
@@ -84,11 +84,12 @@ class DeviceBSR:
     def from_arrays(blocks, idx, bs: int, n_nodes: int, n_pad: int,
                     device="cuda", dtype=None) -> "DeviceBSR":
         """Ship host block/idx arrays (``dtype`` None keeps the blocks'
-        own dtype)."""
+        own dtype; 2-byte void blocks are bf16 patterns, as
+        ``runtime.host_array`` writes them)."""
         dev = resolve_device(device)
         idx = np.array(idx, np.int32, order="C")  # owned, writable copies
         row_ptr = row_ptr_of(idx, n_pad // bs)
-        t = torch.from_numpy(np.array(blocks, order="C"))
+        t = from_host(np.array(blocks, order="C"))
         if dtype is not None:
             t = t.to(torch_dtype(dtype))
         return DeviceBSR(t.to(dev), torch.from_numpy(idx).to(dev),

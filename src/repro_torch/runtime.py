@@ -36,6 +36,26 @@ def torch_dtype(dtype) -> torch.dtype:
     return _TORCH[dtype_name(dtype)]
 
 
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A host numpy array of ``t``. numpy has no bfloat16 without
+    ``ml_dtypes``, so a bf16 tensor comes back as its raw 2-byte patterns
+    in a void ``|V2`` array: the bytes the JAX package's ``np.asarray`` of
+    a bf16 array writes into an ``.npz``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def from_host(a) -> torch.Tensor:
+    """Inverse of ``host_array``: a CPU tensor of ``a``, where a 2-byte
+    void array (or an ``ml_dtypes`` bfloat16 one) holds bf16 patterns."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; a CUDA device must exist (the port
     never falls back to the CPU behind the caller's back)."""
@@ -45,6 +65,16 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run on the host")
     return dev
+
+
+def bind_thread(device) -> None:
+    """Make ``device`` the calling thread's current CUDA device (a no-op
+    for the CPU). A pipeline or queue thread calls it first, so kernels it
+    launches on torch's current stream never depend on which device a new
+    thread happens to start on."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
 
 
 def tol_in(tol: float, dtype) -> float:

@@ -35,7 +35,8 @@ from ..core.hits import EdgeList, hits_sweep_cols
 from ..core.reordering import blocking_permutation
 from ..graph.structure import Graph
 from ..kernels.ops import DeviceBSR, bsr_converge, bsr_matvec, bsr_revalue
-from ..runtime import dtype_name, resolve_device, tol_in, torch_dtype
+from ..runtime import (dtype_name, from_host, host_array, resolve_device,
+                       tol_in, torch_dtype)
 from ..sparse.spmv import normalize_l1
 from .plans import BsrPlan, DensePlan, SweepPlan, structure_key
 
@@ -208,7 +209,11 @@ class SweepBackend:
 
 
 def _numpy(*ts):
-    return tuple(t.cpu().numpy() for t in ts)
+    """Host copies of a sweep's outputs; a bf16 service's vectors come
+    back as float32, which holds every bf16 value exactly (numpy has no
+    bf16)."""
+    return tuple((t.float() if t.dtype == torch.bfloat16 else t).cpu()
+                 .numpy() for t in ts)
 
 
 # ------------------------------------------------------------------- dense
@@ -263,11 +268,14 @@ class DenseSweepBackend(SweepBackend):
 
     name = "dense"
 
-    def _edges(self, src, dst, w, n_pad: int, dtype) -> EdgeList:
-        t = lambda x, dt: torch.from_numpy(np.ascontiguousarray(x)).to(  # noqa: E731
-            self.device, dt)
+    def _edges(self, src, dst, w, n_pad: int, dtype=None) -> EdgeList:
+        """The device edge list of host arrays; ``dtype`` None keeps the
+        weights' own (2-byte voids are bf16 patterns)."""
+        t = lambda x, dt: from_host(x).to(self.device, dt)  # noqa: E731
+        w = from_host(w)
         return EdgeList.build(t(src, torch.int64), t(dst, torch.int64), n_pad,
-                              t(w, torch_dtype(dtype)))
+                              w.to(self.device, w.dtype if dtype is None
+                                   else torch_dtype(dtype)))
 
     def plan(self, b: SweepBatch, key: str = "") -> DensePlan:
         n_pad = b.h0.shape[0]
@@ -278,16 +286,17 @@ class DenseSweepBackend(SweepBackend):
 
     def plan_arrays(self, plan: DensePlan):
         e = plan.edges
+        # bf16 weights persist as the reference writes them: raw 2-byte
+        # patterns (runtime.host_array)
         return ({"src": e.src.int().cpu().numpy(),
                  "dst": e.dst.int().cpu().numpy(),
-                 "w": e.w.cpu().numpy()}, {"n_pad": int(plan.n_pad)})
+                 "w": host_array(e.w)}, {"n_pad": int(plan.n_pad)})
 
     def plan_restore(self, key: str, arrays, meta) -> DensePlan:
         n_pad = int(meta["n_pad"])
-        w = np.asarray(arrays["w"])
         return DensePlan(key=key, backend=self.name, n_pad=n_pad,
-                         edges=self._edges(arrays["src"], arrays["dst"], w,
-                                           n_pad, w.dtype),
+                         edges=self._edges(arrays["src"], arrays["dst"],
+                                           arrays["w"], n_pad),
                          ready=_record_ready(self.device))
 
     def patch(self, plan: DensePlan, b: SweepBatch,
@@ -381,9 +390,9 @@ class BsrSweepBackend(SweepBackend):
 
     def plan_arrays(self, plan: BsrPlan):
         arrays = {"perm": np.asarray(plan.perm), "inv": np.asarray(plan.inv),
-                  "lt_blocks": plan.lt.blocks.cpu().numpy(),
+                  "lt_blocks": host_array(plan.lt.blocks),
                   "lt_idx": plan.lt.idx.cpu().numpy(),
-                  "lfwd_blocks": plan.lfwd.blocks.cpu().numpy(),
+                  "lfwd_blocks": host_array(plan.lfwd.blocks),
                   "lfwd_idx": plan.lfwd.idx.cpu().numpy()}
         # the lo operator copies are NOT persisted — they're a cast of the
         # full-precision blocks, rebuilt from them at restore

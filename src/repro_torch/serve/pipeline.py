@@ -7,11 +7,12 @@ batch's lifecycle decomposes into four stages:
 * ``assemble`` — root-set cache probe, in-batch dedup, union-subgraph
   extraction, padding, per-column induced weights and start vectors.
   Pure host work.
-* ``plan``     — ``PlanCache`` lookup (build on miss) of
+* ``plan``     — ``PlanCache`` lookup (spill restore / build on miss) of
   the backend's structural layout. Host + transfer work.
 * ``sweep``    — the device convergence loop via the ``SweepBackend``.
-* ``publish``  — cache insert, warm-table update, result construction,
-  stats, and frontend completion (``job.on_done``).
+* ``publish``  — cache insert, spill write, warm-table update, result
+  construction, stats, and frontend completion (``job.on_done``, e.g.
+  queue-ticket resolution).
 
 ``run(jobs)`` executes a job stream through those stages. With
 ``depth == 1`` everything runs inline on the caller's thread — the exact
@@ -36,9 +37,12 @@ iteration counts, and bit-identical scores. Scores stay within O(tol) of
 the serial schedule on either frontend (all schedules converge to the
 same fixed points), which the bench gates at <=1e-10.
 
-``RankService.rank`` submits v_max-sized jobs from a list. On the card a
-plan built by the prepare thread carries a CUDA event
-(``SweepPlan.ready``) that the sweep waits on before reading it.
+The frontends are unified on this module: ``RankService.rank`` submits
+v_max-sized jobs from a list; ``RankQueue`` feeds jobs from its pending
+set, so the deadline wait itself — not just assembly — overlaps the
+previous batch's device sweep. On the card a plan built, patched or
+restored by the prepare thread carries a CUDA event (``SweepPlan.ready``)
+that the sweep waits on before reading it.
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ import numpy as np
 from ..core.weights import accel_weights
 from ..graph.structure import next_pow2
 from ..graph.subgraph import root_set_key
+from ..runtime import bind_thread
 from .backends import SweepBatch
 
 
@@ -169,6 +174,26 @@ class ServePipeline:
                 key = root_set_key(roots_u)
                 probes.append([slot, roots_u, key,
                                svc._cache_get_mem(key)])
+        if svc._spill is not None:
+            # memory misses fall back to the spill with the lock RELEASED
+            # (disk reads must not stall the other thread's publish);
+            # duplicate keys in the batch share one read and one admit
+            by_key = {}
+            for p in probes:
+                if p[3] is None:
+                    by_key.setdefault(p[2], []).append(p)
+            disk = {}
+            for k in by_key:
+                t0 = time.perf_counter()
+                disk[k] = svc._spill.get(k)
+                svc._m_spill_read.observe((time.perf_counter() - t0) * 1e3)
+            with svc._lock:
+                for k, plist in by_key.items():
+                    if disk[k] is None:
+                        continue
+                    e = svc._admit_spilled(k, disk[k])
+                    for p in plist:
+                        p[3] = e
         dup_of = {}      # key -> slot of the column that computes it
         misses = []      # (slot, roots, warm_entry|None)
         with svc._lock:
@@ -185,6 +210,7 @@ class ServePipeline:
                     continue
                 dup_of[key] = slot
                 misses.append((slot, roots_u, entry))
+        svc._drain_spill()  # readmission may have queued evictee writes
         if not misses:
             return asm  # all hits: nothing to plan/sweep
 
@@ -258,7 +284,7 @@ class ServePipeline:
 
     def plan(self, asm: _Assembled) -> _Assembled:
         """Host half #2: the backend's structural layout, via the plan
-        cache (built on miss)."""
+        cache (spill-restored or built on miss)."""
         if asm.batch is not None:
             asm.plan = self.svc._plan_for(asm.backend, asm.batch)
         return asm
@@ -274,7 +300,7 @@ class ServePipeline:
         if asm.lump is not None:
             # exact unlump: scatter representative scores to class members
             # and renormalize, so publish (and through it the cache, warm
-            # table) only ever sees full-space vectors
+            # table, and spill) only ever sees full-space vectors
             from .plans import unlump_cols
             asm.h, asm.a = unlump_cols(asm.h, asm.a, asm.lump)
         with self._meta_lock:
@@ -283,7 +309,8 @@ class ServePipeline:
 
     def publish(self, asm: _Assembled) -> list:
         """State mutation half: cache/warm-table writes, result
-        construction, stats — under the service lock."""
+        construction, stats — under the service lock, except the spill's
+        checkpoint writes, which drain to disk after it releases."""
         from .rank_service import QueryResult, _CacheEntry
 
         svc = self.svc
@@ -339,6 +366,9 @@ class ServePipeline:
             for slot, owner in asm.dups:  # identical root sets share a col
                 asm.results[slot] = asm.results[owner]
                 svc.stats[asm.results[owner].status] += 1
+        # the slow half of spilling (checkpoint writes queued by
+        # _cache_put/_admit above) runs with the lock released
+        svc._drain_spill()
         return asm.results
 
     # -- tracing ----------------------------------------------------------
@@ -452,6 +482,7 @@ class ServePipeline:
         """
         j = 0
         try:
+            bind_thread(self.svc.device)
             while not st.stop.is_set():
                 try:
                     job = next(it)

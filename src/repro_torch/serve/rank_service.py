@@ -24,10 +24,17 @@ reweights into the running service: cached results the delta touches are
 invalidated, the warm table carries over, and plans of unchanged
 topologies are value-patched (``SweepBackend.patch``) instead of rebuilt.
 
+``queue()`` puts the SLA-aware micro-batching frontend
+(``serve.queue.RankQueue``) in front of the same pipeline, and a
+``spill_dir`` makes the cache and the plans survive a restart
+(``serve.spill``): converged vectors and plan layouts are checkpointed
+next to each other, a restarted service restores its LRU and warm table,
+and a plan cache miss tries the disk copy before rebuilding. The spill's
+format is the JAX package's, so either package restores the other's.
+
 The service runs on ``RankServiceConfig.device`` — "cuda" unless the
-caller passes "cpu". Not ported yet, and raising ``NotImplementedError``
-rather than doing nothing: ``queue()`` (the async frontend) and
-``spill_dir`` (the restart spill); see ROADMAP.md Queue 1.
+caller passes "cpu". The sharded backend is not ported yet and raises
+``NotImplementedError`` (``NEXT_SLICE``).
 """
 from __future__ import annotations
 
@@ -44,12 +51,14 @@ import torch
 from ..graph.structure import Graph
 from ..graph.subgraph import FocusedSubgraph, SubgraphExtractor
 from ..runtime import dtype_name, resolve_device, torch_dtype
-from .backends import (BACKENDS, SweepBackend, SweepBatch, dtype_floor,
-                       make_backend, resolve_sweep_dtype, select_backend)
+from .backends import (BACKENDS, SHARDED_TODO, SweepBackend, SweepBatch,
+                       dtype_floor, make_backend, resolve_sweep_dtype,
+                       select_backend)
 from .delta import EdgeDelta, apply_to_graph, lookup_weights
 from .plans import PlanCache, SweepPlan, topology_key
 
-NEXT_SLICE = "ROADMAP.md Queue 1 item 7 (serving periphery)"
+# what the port does not carry yet: the sharded backend
+NEXT_SLICE = SHARDED_TODO
 
 
 @dataclasses.dataclass
@@ -83,7 +92,18 @@ class RankServiceConfig:
     # batches in flight: 1 = serial; >= 2 overlaps batch j's host
     # assemble/plan with batch j-1's device sweep
     pipeline_depth: int = 2
-    spill_dir: Optional[str] = None  # not ported yet: must stay None
+    # async micro-batching frontend (serve.queue.RankQueue / .queue()):
+    deadline_ms: float = 5.0   # max extra latency batching may add
+    queue_depth: Optional[int] = None  # max distinct pending (None: 4*v_max)
+    # SLA admission: submits with priority >= shed_priority are
+    # best-effort — under overload they resolve with status "shed"
+    shed_priority: int = 1
+    # restart-survivable cache and plan spill (serve.spill):
+    spill_dir: Optional[str] = None    # None: in-process cache only
+    spill_policy: str = "all"  # all: every converged entry | evict: LRU only
+    # spill generation GC: newest step_* generations kept per entry
+    # stream; init (and queue.drain) compacts the whole spill dir to this
+    spill_keep_generations: int = 1
     device: str = "cuda"       # "cuda" (the card) or "cpu"
 
 
@@ -94,7 +114,7 @@ class QueryResult:
     authority: np.ndarray   # L1-normalized over ``nodes``
     hub: np.ndarray
     iters: int              # sweeps to convergence (0 for a cache hit)
-    status: str             # "hit" | "warm" | "cold"
+    status: str             # "hit" | "warm" | "cold" | "shed" (queue only)
     key: str                # root-set hash (the cache key)
     # residual certificate: ‖sweep(h) − h‖₁ from one extra full-precision
     # sweep at the published h
@@ -121,10 +141,11 @@ class RankService:
     def __init__(self, g: Graph, config: Optional[RankServiceConfig] = None):
         self.g = g
         self.cfg = config or RankServiceConfig()
-        if self.cfg.spill_dir is not None:
-            raise NotImplementedError(
-                f"spill_dir: the cache spill is not ported yet ({NEXT_SLICE})")
         self.device = resolve_device(self.cfg.device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # a concrete card: the pipeline and queue threads bind to it
+            # (runtime.bind_thread) instead of each thread's default
+            self.device = torch.device("cuda", torch.cuda.current_device())
         eff = dtype_name(self.cfg.dtype)
         self._dtype = eff
         min_tol = dtype_floor(eff)
@@ -166,6 +187,8 @@ class RankService:
         if self.cfg.stable_sweeps < 1:
             raise ValueError(
                 f"stable_sweeps must be >= 1, got {self.cfg.stable_sweeps}")
+        if self.cfg.spill_policy not in ("all", "evict"):
+            raise ValueError(f"unknown spill policy {self.cfg.spill_policy!r}")
         if self.cfg.lumping not in ("off", "on", "auto"):
             raise ValueError(f"unknown lumping mode {self.cfg.lumping!r} "
                              f"(want off | on | auto)")
@@ -194,6 +217,12 @@ class RankService:
             "plan_hits": reg.counter("service.plan.hits"),
             "plan_misses": reg.counter("service.plan.misses"),
             "plan_evictions": reg.counter("service.plan.evictions"),
+            "plan_restored": reg.counter("service.plan.restored"),
+            "plan_spilled": reg.counter("service.plan.spilled"),
+            "spill_writes": reg.counter("service.spill.writes"),
+            "spill_hits": reg.counter("service.spill.hits"),
+            "spill_restored": reg.counter("service.spill.restored"),
+            "spill_gc_removed": reg.counter("service.spill.gc_removed"),
         })
         self._m_sweep_iters = reg.histogram("service.sweep.iters")
         for reason in ("residual", "rank_stable", "max_iter"):
@@ -201,6 +230,8 @@ class RankService:
         if self.cfg.backend != "auto":  # auto resolves per batch
             reg.counter("service.backend.batches", self.cfg.backend)
         self._m_ladder = reg.counter("service.ladder.bulk_batches")
+        self._m_spill_read = reg.histogram("service.spill.read_ms")
+        self._m_spill_write = reg.histogram("service.spill.write_ms")
         reg.gauge("service.cache.entries")
         reg.gauge("service.plan_cache.entries")
         self._m_lumped_nodes = reg.counter("service.plan.lumped_nodes")
@@ -221,13 +252,32 @@ class RankService:
         # with that topology, so a post-reweight batch can patch the
         # predecessor plan instead of rebuilding (see _plan_for)
         self._topo_index: Dict[tuple, tuple] = {}
+        self._spill = None
+        self._plan_spill = None
+        self._spill_pending: list = []  # deferred writes (see _drain_spill)
+        self._spill_io_lock = threading.Lock()  # serializes disk writes
+        if self.cfg.spill_dir is not None:
+            from .spill import CacheSpill, PlanSpill
+            keep = self.cfg.spill_keep_generations
+            self._spill = CacheSpill(self.cfg.spill_dir,
+                                     keep_generations=keep)
+            self._plan_spill = PlanSpill(self.cfg.spill_dir,
+                                         keep_generations=keep)
+            self._restore_spilled()
+            self.gc_spill()  # compact stale generations + crash droppings
         from .pipeline import ServePipeline
         self.pipeline = ServePipeline(self, depth=self.cfg.pipeline_depth)
 
     def queue(self, **kw):
-        raise NotImplementedError(
-            f"queue(): the async frontend is not ported yet ({NEXT_SLICE})")
-
+        """An async micro-batching frontend over this service (the config's
+        ``deadline_ms``/``queue_depth``/``shed_priority`` unless
+        overridden)."""
+        from .queue import RankQueue
+        kw.setdefault("deadline_ms", self.cfg.deadline_ms)
+        # 0 and None both mean "the 4*v_max default" (configs use 0)
+        kw.setdefault("max_pending", self.cfg.queue_depth or None)
+        kw.setdefault("shed_priority", self.cfg.shed_priority)
+        return RankQueue(self, **kw)
 
     # -- backends ---------------------------------------------------------
 
@@ -249,7 +299,12 @@ class RankService:
     def _plan_for(self, backend: SweepBackend, batch: SweepBatch) -> SweepPlan:
         """The backend's structural plan for this batch, LRU-cached by
         union-subgraph content hash (the padded edge structure itself, so a
-        changed graph can never be served a stale layout)."""
+        changed graph can never be served a stale layout).
+
+        With a ``spill_dir``, plans also persist next to the vector spill
+        (``serve.spill.PlanSpill``): a cache miss tries the disk copy
+        before rebuilding (``plan_restored``), and every built or patched
+        plan is written through (``plan_spilled``)."""
         skey = batch.structure_key()
         # stopping params and the ladder join the key (a ladder plan carries
         # bulk-dtype operator copies a ladder-free plan lacks); lumped plans
@@ -286,6 +341,17 @@ class RankService:
                                            backend.name).inc()
                     self.stats["plan_evictions"] = \
                         self._plans.stats["evictions"]
+                self._spill_plan(backend, key, plan)
+                return plan
+        if self._plan_spill is not None:  # disk before rebuild (restart)
+            plan = self._restore_plan(backend, key, skey)
+            if plan is not None:
+                with self._lock:
+                    self._plans.put(key, plan)
+                    self._topo_index[tkey] = key
+                    self.stats["plan_restored"] += 1
+                    self.stats["plan_evictions"] = \
+                        self._plans.stats["evictions"]
                 return plan
         plan = backend.plan(batch, skey)
         with self._lock:
@@ -297,30 +363,198 @@ class RankService:
             if old_plan is not None:
                 self._m_delta_replanned.inc()
             self.stats["plan_evictions"] = self._plans.stats["evictions"]
+        self._spill_plan(backend, key, plan)
         return plan
 
+    def _spill_plan(self, backend: SweepBackend, key: tuple,
+                    plan: SweepPlan):
+        """Write-through a built/patched plan to the plan spill.
+
+        Durability is optional: a full disk or an unserializable meta must
+        not fail a batch whose plan is already built and cached. On the
+        card ``plan_arrays`` copies the plan back to the host, on the
+        thread that built it."""
+        if self._plan_spill is None:
+            return
+        try:
+            arrays, meta = backend.plan_arrays(plan)
+            with self._spill_io_lock:  # concurrent same-key builds
+                self._plan_spill.put(key, arrays, meta)
+            with self._lock:
+                self.stats["plan_spilled"] += 1
+        except (NotImplementedError, OSError, ValueError, TypeError):
+            pass
+
+    def _restore_plan(self, backend: SweepBackend, key: tuple,
+                      skey: str) -> Optional[SweepPlan]:
+        """A spilled plan for this cache key, rehydrated on the backend's
+        device — or None (absent, foreign, corrupt, or mismatched layout
+        params: a bad disk record means a rebuild, never a crash)."""
+        rec = self._plan_spill.get(key)
+        if rec is None:
+            return None
+        try:
+            return backend.plan_restore(skey, *rec)
+        except (NotImplementedError, KeyError, ValueError, TypeError):
+            return None
+
     # -- cache ------------------------------------------------------------
+    # Disk traffic (spill reads and writes) lives OUTSIDE the service lock:
+    # the pipeline's assemble stage probes the spill after releasing it,
+    # and writes queue in ``_spill_pending`` for ``_drain_spill`` —
+    # otherwise every checkpoint write would serialize the prepare worker
+    # against the publishing thread and erase the pipeline's overlap.
 
     def _cache_get_mem(self, key: str) -> Optional[_CacheEntry]:
-        """LRU probe (caller holds the lock)."""
+        """In-memory LRU probe only (caller holds the lock); the spill
+        fallback for misses is the assemble stage's, off the lock."""
         e = self._cache.get(key)
         if e is not None:
             self._cache.move_to_end(key)
         return e
 
-    def _cache_put(self, key: str, e: _CacheEntry):
+    def _admit_spilled(self, key: str, d) -> Optional[_CacheEntry]:
+        """Admit a record read back from the spill (caller holds the lock;
+        the disk read already happened): validate, count the disk hit,
+        restore LRU + warm-table state. No rewrite to disk."""
+        live = self._cache_get_mem(key)
+        if live is not None:
+            # a concurrent run converged this key since the memory probe:
+            # the live entry is fresher than the disk one
+            return live
+        e = self._entry_from_spill(d)
+        if e is None:
+            return None
+        self.stats["spill_hits"] += 1
+        self._admit(key, e)
+        self._warm_h[e.nodes] = e.hub
+        self._warm_seen[e.nodes] = True
+        return e
+
+    def _entry_from_spill(self, d) -> Optional[_CacheEntry]:
+        """Validate a spilled record (a spill dir pointed at the wrong
+        graph must not crash node indexing) -> entry or None."""
+        if d is None:
+            return None
+        nodes = d["nodes"]
+        if len(nodes) == 0 or len(d["authority"]) != len(nodes) \
+                or len(d["hub"]) != len(nodes) \
+                or int(nodes[-1]) >= self.g.n_nodes or int(nodes[0]) < 0:
+            return None
+        return _CacheEntry(nodes=nodes, authority=d["authority"],
+                           hub=d["hub"])
+
+    def _admit(self, key: str, e: _CacheEntry):
+        """LRU insert + eviction (spilling evictees keeps them servable;
+        the disk write is deferred to ``_drain_spill``)."""
         self._cache[key] = e
         self._cache.move_to_end(key)
         while len(self._cache) > self.cfg.cache_size:
-            self._cache.popitem(last=False)
+            old_key, old = self._cache.popitem(last=False)
+            # under "all" every converged entry was spilled at _cache_put
+            if self._spill is not None and self.cfg.spill_policy == "evict":
+                self._spill_pending.append((old_key, old.nodes,
+                                            old.authority, old.hub))
+
+    def _cache_put(self, key: str, e: _CacheEntry):
+        if self._spill is not None and self.cfg.spill_policy == "all":
+            self._spill_pending.append((key, e.nodes, e.authority, e.hub))
+        self._admit(key, e)
+
+    def _drain_spill(self):
+        """Flush deferred spill writes to disk, OUTSIDE the service lock.
+
+        Writes are serialized by the spill IO lock (a sync ``rank`` beside
+        the queue dispatcher could otherwise race ``checkpoint.save`` on
+        the same key's generation) and are best-effort: a disk failure
+        must never fail a batch whose results are already in memory.
+        """
+        if self._spill is None:
+            return
+        with self._lock:
+            pending, self._spill_pending = self._spill_pending, []
+        if not pending:
+            return  # don't queue behind another thread's writes for a no-op
+        written = 0
+        with self._spill_io_lock:
+            for key, nodes, authority, hub in pending:
+                t0 = time.perf_counter()
+                try:
+                    self._spill.put(key, nodes, authority, hub)
+                    written += 1
+                except (OSError, ValueError):
+                    continue
+                self._m_spill_write.observe(
+                    (time.perf_counter() - t0) * 1e3)
+        if written:
+            with self._lock:
+                self.stats["spill_writes"] += written
+
+    def _restore_spilled(self):
+        """Repopulate the LRU (newest-spilled most recent) and the global
+        warm table from a previous process's spill directory."""
+        restored = list(self._spill.load_recent(limit=self.cfg.cache_size))
+        n = 0
+        for key, d in reversed(restored):  # oldest first -> newest ends MRU
+            e = self._entry_from_spill(d)
+            if e is None:
+                continue
+            self._admit(key, e)
+            self._warm_h[e.nodes] = e.hub
+            self._warm_seen[e.nodes] = True
+            n += 1
+        self.stats["spill_restored"] = n
+
+    def flush_spill(self):
+        """Force-spill every in-memory entry (a graceful-shutdown drain for
+        ``spill_policy="evict"``; under ``"all"`` everything is already on
+        disk)."""
+        if self._spill is None:
+            raise ValueError("no spill_dir configured")
+        self._drain_spill()  # deferred evictee writes aren't in the LRU
+        with self._lock:
+            entries = [(k, e.nodes, e.authority, e.hub)
+                       for k, e in self._cache.items()]
+        with self._spill_io_lock:
+            for key, nodes, authority, hub in entries:
+                t0 = time.perf_counter()
+                self._spill.put(key, nodes, authority, hub)
+                self._m_spill_write.observe(
+                    (time.perf_counter() - t0) * 1e3)
+        with self._lock:
+            self.stats["spill_writes"] += len(entries)
+
+    def gc_spill(self, keep: Optional[int] = None) -> int:
+        """Compact the spill directory: prune each entry stream past its
+        newest ``spill_keep_generations`` (or ``keep``) ``step_*``
+        generations and sweep ``.tmp_*`` crash droppings, for vectors and
+        plans both. Runs at init and on queue drain; counted under
+        ``service.spill.gc_removed``. No-op (0) without a spill dir."""
+        if self._spill is None:
+            return 0
+        with self._spill_io_lock:
+            n = self._spill.gc(keep) + self._plan_spill.gc(keep)
+        if n:
+            with self._lock:
+                self.stats["spill_gc_removed"] += n
+        return n
 
     def clear_result_cache(self):
-        """Drop all converged-vector state (LRU entries, the warm-start
-        table) while keeping cached plans."""
+        """Drop all converged-vector state (LRU entries, pending spill
+        writes, the warm-start table) while keeping cached plans.
+
+        With a spill configured, clearing also bumps the spill's data
+        generation: everything on disk was written under the old one and
+        now reads as absent, so cleared state stays cleared across both
+        the disk fallback and a restart's restore."""
         with self._lock:
             self._cache.clear()
+            self._spill_pending.clear()  # pre-clear vectors; must not land
             self._warm_h[:] = 0.0
             self._warm_seen[:] = False
+        if self._spill is not None:
+            with self._spill_io_lock:
+                self._spill.bump_data_generation()
 
     def apply_edge_delta(self, adds=None, removes=None,
                          reweights=None) -> dict:
@@ -340,10 +574,18 @@ class RankService:
         whose node set misses every changed edge's endpoints (the rest are
         invalidated: ``service.delta.invalidated``).
 
+        What cannot survive: pre-delta vectors of touched subgraphs — in
+        memory (invalidated here), in flight to disk (pending writes
+        dropped), and on disk (the spill's data generation bumps, so the
+        disk fallback and a restart read them as absent; the surviving
+        entries re-spill under the new generation when ``spill_policy``
+        is "all").
+
         Call it between batches (no batch in flight against the pre-delta
-        graph). Returns a summary dict; timing goes to
-        ``service.delta.swap_ms``. ``data_generation`` is None: it counts
-        spill generations, and the spill is not ported yet.
+        graph), e.g. inside a queue drain window (drain -> apply_edge_delta
+        -> undrain, ``launch.serve_rank.roll_delta``). Returns a summary
+        dict (``data_generation``: the spill's new generation, None without
+        a spill); timing goes to ``service.delta.swap_ms``.
         """
         t0 = time.perf_counter()
         delta = EdgeDelta.normalize(adds, removes, reweights,
@@ -360,15 +602,31 @@ class RankService:
                 self.extractor = SubgraphExtractor(new_g, self.cfg.out_cap,
                                                    self.cfg.in_cap)
             self._edge_table = table
-            doomed = [k for k, e in self._cache.items()
-                      if np.isin(e.nodes, touched, assume_unique=True).any()]
+            doomed = {k for k, e in self._cache.items()
+                      if np.isin(e.nodes, touched, assume_unique=True).any()}
             for k in doomed:
                 del self._cache[k]
             self._m_delta_invalidated.inc(len(doomed))
+            # in-flight writes of now-stale vectors must not reach disk
+            self._spill_pending = [p for p in self._spill_pending
+                                   if p[0] not in doomed]
+            survivors = [(k, e.nodes, e.authority, e.hub)
+                         for k, e in self._cache.items()]
+        gen = None
+        if self._spill is not None:
+            with self._spill_io_lock:
+                gen = self._spill.bump_data_generation()
+            if self.cfg.spill_policy == "all" and survivors:
+                # everything on disk just went stale; re-spill the still-
+                # valid entries under the new generation so a restart keeps
+                # them (only pre-delta state of touched subgraphs must die)
+                with self._lock:
+                    self._spill_pending.extend(survivors)
+                self._drain_spill()
         swap_ms = (time.perf_counter() - t0) * 1e3
         self._m_delta_swap.observe(swap_ms)
         return {"structural": delta.structural, "invalidated": len(doomed),
-                "touched_nodes": int(len(touched)), "data_generation": None,
+                "touched_nodes": int(len(touched)), "data_generation": gen,
                 "swap_ms": swap_ms}
 
     def _union_weights(self, nodes: np.ndarray, src_loc: np.ndarray,

@@ -670,3 +670,83 @@ def test_k2_long_run_reuses_one_scratch(cuda, monkeypatch):
     assert (got[1] - want[1]).abs().sum(0).max().item() <= 1e-10
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["bsr", "dense"])
+def test_queue_on_the_card_matches_the_cpu(cuda, backend):
+    """The queued frontend on the card (the prepare thread plans and
+    copies, the dispatcher thread sweeps): every served query within
+    1e-10 L1 of a cold CPU ranking of its root set (the batches form by
+    arrival timing, so statuses and iters are not compared), and the
+    card's K2 graph launched once per swept batch."""
+    g = generate_webgraph(WebGraphSpec(400, 4000, 0.5, seed=2))
+    rng = np.random.default_rng(1)
+    vocab = [rng.choice(g.n_nodes, size=5, replace=False) for _ in range(10)]
+    stream = [vocab[i] for i in rng.integers(0, 10, 40)]
+    kw = dict(backend=backend, v_max=4, bsr_block=64)
+    svc = RankService(g, RankServiceConfig(device="cuda", **kw))
+    K.reset_counters()
+    q = svc.queue(deadline_ms=2)
+    try:
+        tickets = [q.submit(x, priority=i % 2) for i, x in enumerate(stream)]
+        got = [t.result(timeout=120) for t in tickets]
+    finally:
+        q.close(wait=False)
+        q._thread.join(timeout=120)
+        q.flush()
+    assert not q._thread.is_alive()
+    cpu = RankService(g, RankServiceConfig(device="cpu",
+                                           warm_min_overlap=2.0, **kw))
+    for r, x in zip(got, stream):
+        if r.status == "shed":
+            continue
+        o = cpu.rank([x])[0]
+        assert np.array_equal(r.nodes, o.nodes)
+        assert np.abs(r.authority - o.authority).sum() <= 1e-10
+        assert np.abs(r.hub - o.hub).sum() <= 1e-10
+    assert q.snapshot_stats()["classes"][0]["shed"] == 0
+    if backend == "bsr":
+        assert K.counters.bsr_converge == svc.pipeline.stats["swept"] >= 1
+
+
+@pytest.mark.cuda
+def test_restored_plan_on_the_card(cuda, tmp_path):
+    """A card service spills its bsr plans; a restarted card service with
+    the vectors cleared sweeps through the restored plans (no plan built)
+    to the first service's bits; a spill dir the CPU service wrote
+    restores on the card within 1e-10 L1, iters equal."""
+    g = generate_webgraph(WebGraphSpec(400, 4000, 0.5, seed=2))
+    rng = np.random.default_rng(0)
+    qs = [rng.choice(g.n_nodes, size=5, replace=False) for _ in range(8)]
+    kw = dict(backend="bsr", v_max=4, bsr_block=64)
+    a = RankService(g, RankServiceConfig(device="cuda",
+                                         spill_dir=str(tmp_path / "card"),
+                                         **kw))
+    first = a.rank(qs)
+    assert a.stats["plan_spilled"] == a.stats["plan_misses"] == 2
+    b = RankService(g, RankServiceConfig(device="cuda",
+                                         spill_dir=str(tmp_path / "card"),
+                                         **kw))
+    assert b.stats["spill_restored"] == len(qs)
+    b.clear_result_cache()
+    again = b.rank(qs)
+    assert b.stats["plan_restored"] == 2 and b.stats["plan_misses"] == 0
+    for x, y in zip(again, first):
+        assert x.status == y.status and x.iters == y.iters
+        assert np.array_equal(x.authority, y.authority)
+        assert np.array_equal(x.hub, y.hub)
+    host = RankService(g, RankServiceConfig(device="cpu",
+                                            spill_dir=str(tmp_path / "cpu"),
+                                            **kw))
+    want = host.rank(qs)
+    c = RankService(g, RankServiceConfig(device="cuda",
+                                         spill_dir=str(tmp_path / "cpu"),
+                                         **kw))
+    c.clear_result_cache()
+    got = c.rank(qs)
+    assert c.stats["plan_restored"] == 2 and c.stats["plan_misses"] == 0
+    for x, y in zip(got, want):
+        assert x.iters == y.iters
+        assert np.abs(x.authority - y.authority).sum() <= 1e-10
+        assert np.abs(x.hub - y.hub).sum() <= 1e-10

@@ -9,7 +9,10 @@ same graph, and holds the port to the reference: per query 1e-10 L1 on
 authority and hub, equal iters, status and node set; equal delta
 counters (patched per backend, replanned, invalidated), plan misses and
 delta summaries. The scenario's own assertions from the reference test
-hold too. The spill cases and the sharded case wait with their modules.
+hold too; the spill cases (restart fencing, survivors re-spilled, a
+cleared cache staying cleared on disk) also hold ``data_generation`` and
+the ``service.spill.*`` counters to the reference's. The sharded case
+waits with its module.
 """
 import numpy as np
 import pytest
@@ -244,6 +247,107 @@ def test_delta_sequence_on_overlapping_batches(g):
         ref, got = both(scenario, g, backend=backend)
         assert_matches(ref, got)
         assert got[2]["patched"][backend] >= 1
+
+
+# ------------------------------------------------ spill generation fence
+
+
+def spill_counters(svc):
+    return {k: svc.stats[k] for k in ("spill_writes", "spill_hits",
+                                      "spill_restored", "plan_spilled",
+                                      "plan_restored")}
+
+
+def both_spilled(scenario, graph, tmp_path, **kw):
+    """``both`` for scenarios that restart: ``scenario(new) -> (results,
+    extra)``, where ``new(**more)`` makes a service of this side on its
+    own spill dir; the last service made reports the counters."""
+    out = []
+    for port in (False, True):
+        made = []
+
+        def new(**more):
+            made.append(make(graph, port, spill_dir=str(
+                tmp_path / ("port" if port else "ref")), **{**kw, **more}))
+            return made[-1]
+
+        results, extra = scenario(new)
+        out.append((results, extra, {**counters(made[-1]),
+                                     **spill_counters(made[-1])}))
+    return out
+
+
+def test_restart_after_delta_never_serves_predelta_vectors(g, tmp_path):
+    """Spilled pre-delta vectors are generation-fenced: a restart on the
+    same spill dir does not resurrect them, and the refreshed answer
+    matches the reference's."""
+    roots = np.array([50, 51, 52])
+
+    def scenario(new):
+        svc = new(spill_policy="all")
+        first = svc.rank([roots])
+        svc.flush_spill()
+        assert svc.stats["spill_writes"] >= 1
+        u, v = union_edge(svc, roots)
+        summ = svc.apply_edge_delta(reweights=[(u, v, 2.0)])
+        assert summ["data_generation"] == 1
+        svc2 = new(spill_policy="all")
+        assert svc2.stats["spill_restored"] == 0
+        summ2 = svc2.apply_edge_delta(reweights=[(u, v, 2.0)])
+        r = svc2.rank([roots])
+        assert r[0].status == "cold" and svc2.stats["spill_hits"] == 0
+        return first + r, [summary(summ), summary(summ2)]
+
+    assert_matches(*both_spilled(scenario, g, tmp_path))
+
+
+def test_delta_respills_survivors_under_new_generation(g, tmp_path):
+    """Entries the delta did not touch are re-spilled under the new
+    generation, so a restart still serves them from disk."""
+    touched_roots, safe_roots = np.array([60, 61]), np.array([62, 63])
+
+    def scenario(new):
+        svc = new(spill_policy="all")
+        first = svc.rank([touched_roots, safe_roots])
+        svc.flush_spill()
+        fs_t = svc.extractor.extract(touched_roots)
+        safe = set(svc.extractor.extract(safe_roots).nodes.tolist())
+        edge = next(((int(fs_t.nodes[s]), int(fs_t.nodes[d]))
+                     for s, d in zip(fs_t.graph.src, fs_t.graph.dst)
+                     if int(fs_t.nodes[s]) not in safe
+                     and int(fs_t.nodes[d]) not in safe), None)
+        assert edge is not None, "no union edge isolable from the safe query"
+        summ = svc.apply_edge_delta(reweights=[(edge[0], edge[1], 2.0)])
+        svc2 = new(spill_policy="all")
+        assert svc2.stats["spill_restored"] == 1  # survivor only, new gen
+        r = svc2.rank([safe_roots])
+        assert r[0].status == "hit"
+        assert np.array_equal(r[0].authority, first[1].authority)
+        return first + r, summary(summ)
+
+    assert_matches(*both_spilled(scenario, g, tmp_path))
+
+
+def test_clear_result_cache_clears_disk_fallback_too(g, tmp_path):
+    """clear_result_cache() bumps the spill generation: cleared state
+    stays cleared across the disk fallback and a restart."""
+    roots = np.array([70, 71, 72])
+
+    def scenario(new):
+        svc = new(spill_policy="all")
+        first = svc.rank([roots])
+        svc.flush_spill()
+        hit = svc.rank([roots])
+        assert hit[0].status == "hit"
+        svc.clear_result_cache()
+        svc2 = new(spill_policy="all")
+        assert svc2.stats["spill_restored"] == 0
+        r = svc.rank([roots])
+        assert r[0].status == "cold" and svc.stats["spill_hits"] == 0
+        new(spill_policy="all")  # a third restart reports the counters
+        return first + hit + r, svc._spill.data_generation
+
+    assert_matches(*both_spilled(scenario, g, tmp_path))
 
 
 # ------------------------------------------------ roots and validation

@@ -1,0 +1,271 @@
+"""The port's launcher (``python -m repro_torch.launch.serve_rank``) on the
+CPU: the same synthetic graph and seed through it and through the JAX
+package's launcher give the same cache, plan and spill counters and the
+same top-k; the queued frontend answers ``/healthz``, rolls a
+``--delta-file`` on SIGHUP and drains to exit 0 on SIGTERM; and its
+helpers (``zipf_query_stream``, ``load_delta_file``, ``roll_delta``)
+match the reference's.
+
+Every wait on the subprocess has a timeout, so a hang fails the test.
+"""
+import ast
+import json
+import os
+import queue
+import re
+import signal
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.graph import WebGraphSpec as RefSpec
+from repro.graph import generate_webgraph as ref_generate
+from repro.launch import serve_rank as rlaunch
+from repro.serve import RankService as RefService
+from repro.serve import RankServiceConfig as RefConfig
+from repro_torch.graph import WebGraphSpec, from_reference, generate_webgraph
+from repro_torch.launch import serve_rank as plaunch
+from repro_torch.serve import RankService, RankServiceConfig
+
+ROOT = Path(__file__).resolve().parents[1]
+WAIT = 180  # seconds any subprocess step may take before the test fails
+GRAPH = ["--dataset", "synthetic", "--n-nodes", "3000", "--n-edges", "24000",
+         "--seed", "0"]
+
+
+def env():
+    # one intra-op thread: the suite's other workers share the host
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+                OMP_NUM_THREADS="1")
+
+
+def launch(module, *args, cwd):
+    r = subprocess.run([sys.executable, "-m", module, *args],
+                       capture_output=True, text=True, env=env(), cwd=cwd,
+                       timeout=WAIT)
+    assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-3000:])
+    return r.stdout
+
+
+def line(out, prefix):
+    hits = [x for x in out.splitlines() if x.startswith(prefix)]
+    assert hits, (prefix, out)
+    return hits[-1]
+
+
+def topk(out):
+    """The sample query's root set and top-k (node, score) pairs."""
+    m = re.search(r"sample query (\[.*?\]) \[(\w+).*?top-\d+ authorities "
+                  r"(\[.*\])", out)
+    assert m, out
+    return ast.literal_eval(m.group(1)), m.group(2), \
+        ast.literal_eval(m.group(3))
+
+
+def test_launcher_matches_reference(tmp_path):
+    """Both launchers (sync frontend) on the same graph, stream and spill
+    layout: equal hit/warm/cold and plan counters, equal spill writes, the
+    same sample top-k (nodes equal, scores within 1e-9); then a relaunch
+    of each on its spill dir restores as many entries and serves the
+    stream as hits. (The queued frontend's batches depend on arrival
+    timing, so its counters are not compared across two processes.)"""
+    args = GRAPH + ["--requests", "40", "--v", "4", "--backend", "dense"]
+    outs = {}
+    for name, module in (("ref", "repro.launch.serve_rank"),
+                         ("port", "repro_torch.launch.serve_rank")):
+        spill = str(tmp_path / name)
+        extra = ["--device", "cpu"] if name == "port" else []
+        first = launch(module, *args, *extra, "--spill-dir", spill,
+                       cwd=tmp_path)
+        again = launch(module, *args, *extra, "--spill-dir", spill,
+                       cwd=tmp_path)
+        outs[name] = (first, again)
+    for i in range(2):
+        r, p = outs["ref"][i], outs["port"][i]
+        for prefix in ("graph:", "cache:", "plans:", "iterated queries:"):
+            if i == 1 and prefix == "iterated queries:":
+                continue  # a relaunch serves hits only: nothing iterated
+            assert line(p, prefix) == line(r, prefix), prefix
+        assert line(p, "spill:").split(" -> ")[0] == \
+            line(r, "spill:").split(" -> ")[0]
+        rr, rs, rk = topk(r)
+        pr, ps, pk = topk(p)
+        assert (pr, ps) == (rr, rs)
+        assert [n for n, _ in pk] == [n for n, _ in rk]
+        assert max(abs(a - b) for (_, a), (_, b) in zip(pk, rk)) <= 1e-9
+    again = outs["port"][1]
+    assert line(again, "spill: restored").split(" from ")[0] == \
+        line(outs["ref"][1], "spill: restored").split(" from ")[0]
+    assert "(100.0% hit rate)" in line(again, "cache:")
+
+
+class Lines:
+    """A subprocess's stdout read by a thread, waited on with timeouts."""
+
+    def __init__(self, proc):
+        self.q, self.seen = queue.Queue(), []
+        threading.Thread(target=self._pump, args=(proc.stdout,),
+                         daemon=True).start()
+
+    def _pump(self, f):
+        for x in f:
+            self.q.put(x.rstrip("\n"))
+        self.q.put(None)
+
+    def wait_for(self, prefix, timeout=WAIT):
+        end = time.monotonic() + timeout
+        while True:
+            left = end - time.monotonic()
+            assert left > 0, (prefix, self.seen[-20:])
+            try:
+                x = self.q.get(timeout=left)
+            except queue.Empty:
+                continue
+            assert x is not None, (prefix, "stdout closed", self.seen[-20:])
+            self.seen.append(x)
+            if x.startswith(prefix):
+                return x
+
+    def rest(self, timeout=WAIT):
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            try:
+                x = self.q.get(timeout=max(end - time.monotonic(), 0.01))
+            except queue.Empty:
+                continue
+            if x is None:
+                return self.seen
+            self.seen.append(x)
+        raise AssertionError(("stdout never closed", self.seen[-20:]))
+
+
+def get(port, path):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def test_queued_launcher_rolls_a_delta_and_drains(tmp_path):
+    """``--frontend queued --stats-port 0 --delta-file``: /healthz answers
+    ok, SIGHUP rolls a 1-edge reweight inside a served union (drain ->
+    apply_edge_delta -> undrain), SIGTERM drains to exit 0 with the drain
+    and SLA lines, and a relaunch on the spill dir restores entries."""
+    n, e, roots = 3000, 24000, 5
+    g = generate_webgraph(WebGraphSpec(n, e, 0.6, seed=0))
+    stream = plaunch.zipf_query_stream(np.random.default_rng(0), n, 40,
+                                       roots)
+    fs = RankService(g, RankServiceConfig(device="cpu")).extractor.extract(
+        np.unique(stream[0]))
+    u, v = int(fs.nodes[fs.graph.src[0]]), int(fs.nodes[fs.graph.dst[0]])
+    delta = tmp_path / "delta.json"
+    delta.write_text(json.dumps({"reweights": [[u, v, 2.0]]}))
+    spill = str(tmp_path / "spill")
+    args = [sys.executable, "-m", "repro_torch.launch.serve_rank",
+            "--device", "cpu", *GRAPH, "--requests", "3000", "--v", "4",
+            "--frontend", "queued", "--arrival-qps", "100",
+            "--low-pri-frac", "0.25", "--sla-ms", "1000",
+            "--stats-port", "0", "--spill-dir", spill,
+            "--delta-file", str(delta)]
+    err = open(tmp_path / "stderr.txt", "w")
+    proc = subprocess.Popen(args, stdout=subprocess.PIPE, text=True,
+                            stderr=err, env=env(), cwd=tmp_path)
+    try:
+        out = Lines(proc)
+        port = int(out.wait_for("stats:").rsplit(":", 1)[1])
+        out.wait_for("serving:")
+        assert get(port, "/healthz") == (200, b"ok")
+        proc.send_signal(signal.SIGHUP)
+        roll = out.wait_for("delta roll:")
+        assert "admission re-opened" in roll and "structural=False" in roll
+        stats = json.loads(get(port, "/stats.json")[1])
+        assert stats["queue"]["queue.drains"] >= 1
+        proc.send_signal(signal.SIGTERM)
+        seen = out.rest()
+        rc = proc.wait(timeout=WAIT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=WAIT)
+        err.close()
+    assert rc == 0, (tmp_path / "stderr.txt").read_text()[-3000:]
+    text = "\n".join(seen)
+    assert "drain: admission stopped" in text
+    sla = [x for x in seen if x.startswith("sla:")]
+    assert sla and re.search(r"class 0: \d+ submitted / \d+ served / 0 shed",
+                             text), text
+    again = launch("repro_torch.launch.serve_rank", "--device", "cpu", *GRAPH,
+                   "--requests", "8", "--v", "4", "--spill-dir", spill,
+                   cwd=tmp_path)
+    assert int(line(again, "spill: restored").split()[2]) >= 1
+
+
+def test_helpers_match_reference(tmp_path):
+    """The Zipf stream, the delta-file parser and the drain -> delta ->
+    undrain roll give what the reference's give."""
+    for seed in (0, 3):
+        a = plaunch.zipf_query_stream(np.random.default_rng(seed), 500, 30,
+                                      5, vocab=16)
+        b = rlaunch.zipf_query_stream(np.random.default_rng(seed), 500, 30,
+                                      5, vocab=16)
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    f = tmp_path / "d.json"
+    f.write_text(json.dumps({"reweights": [[1, 2, 2.0]], "removes": []}))
+    assert plaunch.load_delta_file(str(f)) == rlaunch.load_delta_file(str(f))
+    f.write_text(json.dumps({"moves": []}))
+    for mod in (plaunch, rlaunch):
+        with pytest.raises(ValueError, match="unknown keys"):
+            mod.load_delta_file(str(f))
+
+    rg = ref_generate(RefSpec(800, 6000, 0.5, seed=1))
+    rng = np.random.default_rng(4)
+    qs = [rng.choice(800, size=4, replace=False) for _ in range(6)]
+    out = []
+    # depth 1: a batch's warm starts never depend on arrival timing
+    for svc in (RefService(rg, RefConfig(v_max=4, tol=1e-12,
+                                         pipeline_depth=1)),
+                RankService(from_reference(rg), RankServiceConfig(
+                    device="cpu", v_max=4, tol=1e-12, pipeline_depth=1))):
+        fs = svc.extractor.extract(np.unique(qs[0]))
+        u, v = int(fs.nodes[fs.graph.src[0]]), int(fs.nodes[fs.graph.dst[0]])
+        mod = plaunch if isinstance(svc, RankService) else rlaunch
+        q = svc.queue(deadline_ms=60_000)
+        try:
+            tickets = [q.submit(x) for x in qs]
+            draining = threading.Event()
+            d, s = mod.roll_delta(svc, q, {"reweights": [(u, v, 2.0)]},
+                                  draining)
+            assert not draining.is_set()
+            after = [q.submit(x) for x in qs[:2]]
+        finally:  # close() serves what is pending
+            q.close(wait=False)
+            q._thread.join(timeout=WAIT)
+            q.flush()
+        res = [t.result(timeout=WAIT) for t in tickets + after]
+        s.pop("swap_ms")
+        out.append((d, s, [(r.status, r.iters) for r in res]))
+    assert out[0] == out[1]
+
+
+def test_sharded_backend_and_missing_card_raise(monkeypatch):
+    """``--backend sharded`` names the roadmap item that ports it; without
+    ``--device cpu`` the launcher wants the card and raises without one."""
+    small = ["serve_rank", "--dataset", "synthetic", "--n-nodes", "200",
+             "--n-edges", "1000", "--requests", "4"]
+    monkeypatch.setattr(sys, "argv", small + ["--backend", "sharded",
+                                              "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
+        plaunch.main()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", small)
+    with pytest.raises(RuntimeError, match="cuda"):
+        plaunch.main()

@@ -225,15 +225,12 @@ def test_validation_and_tol_clamp_match_reference(g):
 
 
 def test_unported_features_raise(g, monkeypatch):
-    """Deferred features say so instead of doing nothing; the service runs
-    on the card unless the caller asks for the CPU. (Live edge deltas are
-    ported: ``tests/test_torch_delta.py``.)"""
-    p = RankService(g, RankServiceConfig(device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.queue()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RankService(g, RankServiceConfig(device="cpu", spill_dir="x"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The one deferred feature, the sharded backend, says so instead of
+    doing nothing; the service runs on the card unless the caller asks for
+    the CPU. (Live edge deltas, the queue and the spill are ported:
+    ``tests/test_torch_delta.py``, ``test_torch_queue.py``,
+    ``test_torch_spill.py``.)"""
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
         RankService(g, RankServiceConfig(device="cpu", backend="sharded")
                     ).rank([[1, 2]])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
