@@ -61,7 +61,26 @@ Phases (any failure exits non-zero and prints no result line):
    ``--stats-port 0``, a spill dir, a 1-edge ``--delta-file``): /healthz,
    SIGHUP rolls the delta mid-stream, SIGTERM drains to exit 0, and a
    relaunch on the spill dir restores entries;
-4. a ``{"kernels": [...]}`` line, then the contract's last line.
+3e. the offline ranking path at full scale: (a) Table 7: ``qi_hits``,
+   ``accel_hits`` and ``pagerank`` (f64, tol 1e-9) on the eight
+   ``PAPER_TABLE7`` datasets at scale 1.0, original and back-button
+   graphs, iters held to the JAX package's (``TABLE7_ITERS``), wall ms per
+   run, britannica/wikipedia/jobs also held to the port on the host CPU
+   (1e-10 L1, equal iters), the paper's claims and the cosine/Spearman
+   agreement with QI-HITS printed as findings; (b) K1 on the whole graph:
+   ``kernels.ops.hits_sweep_bsr`` on britannica (f32, bs 128, no
+   permutation: 27,214 blocks in Lᵀ): one K1 call bit-equal to its plain
+   version, ``iters + 5`` sweeps (2 K1 launches each, counted) within
+   1e-4 of the card's ``RankingEngine`` hub, K1's device time per launch
+   beside its byte bound, the plain version and ``torch.sparse_bsr_tensor
+   @``, and one segment-sum sweep (``core.hits.hits_sweep``) of the same
+   graph; (c) ``core.power.power_method_jit`` (one CUDA graph, a WHILE
+   node over the captured f64 K1 sweep) against ``power_method``; (d)
+   ``RankingEngine`` on the card against the CPU, with and without
+   stragglers, and ``python -m repro_torch.launch.rank`` (britannica,
+   back-button, a checkpoint every 2 sweeps), then ``--resume``;
+4. a ``{"kernels": [...]}`` line (K1's entry carries the whole-graph
+   path's numbers under ``hits_sweep_bsr``), then the contract's last line.
 
 It imports torch, numpy and the port only. K1's and K3's ``ms`` is the
 kernel's device time per launch and the epilogue's the device time of
@@ -87,6 +106,30 @@ L2_BYTES = 50 * 2 ** 20    # H100 SXM L2
 # peak rate per operand type: bf16 dense tensor cores and f32 outside the
 # tensor cores; f64 tensor cores (H100 SXM data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 67e12}
+# The JAX package's iters (qi_hits, accel_hits, pagerank) for Table 7's
+# datasets at scale 1.0, f64, tol 1e-9, on the original (orig) and the
+# back-button (bb) graphs; made on the CPU with
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "
+#   import jax; jax.config.update('jax_enable_x64', True)
+#   from repro.core import accel_hits, back_button, pagerank, qi_hits
+#   from repro.graph import PAPER_TABLE7, paper_dataset
+#   for n in PAPER_TABLE7:
+#       g = paper_dataset(n, 1.0)
+#       for t, gg in (('orig', g), ('bb', back_button(g))):
+#           print(n, t, [f(gg, tol=1e-9).iters
+#                        for f in (qi_hits, accel_hits, pagerank)])"
+TABLE7_ITERS = {
+    ("britannica", "orig"): (10, 9, 7), ("britannica", "bb"): (73, 8, 66),
+    ("jobs", "orig"): (11, 9, 7), ("jobs", "bb"): (130, 8, 88),
+    ("opera", "orig"): (9, 8, 6), ("opera", "bb"): (151, 6, 95),
+    ("python", "orig"): (9, 8, 6), ("python", "bb"): (310, 10, 95),
+    ("scholarpedia", "orig"): (9, 9, 8), ("scholarpedia", "bb"): (160, 11, 71),
+    ("stanford", "orig"): (9, 8, 6), ("stanford", "bb"): (230, 9, 100),
+    ("wikipedia", "orig"): (13, 9, 6), ("wikipedia", "bb"): (215, 15, 104),
+    ("yahoo", "orig"): (10, 9, 5), ("yahoo", "bb"): (420, 12, 114),
+}
+# datasets whose card vectors are also held to the port on the host CPU
+TABLE7_ON_CPU = ("britannica", "wikipedia", "jobs")
 
 
 def fail(msg):
@@ -813,6 +856,9 @@ def main():
     # ------------------------------------------- 3d. serving periphery
     periphery(g, queries, cfg, timed)
 
+    # ------------------------------------- 3e. the offline ranking path
+    whole = offline(g, card, ms, device_ms, timed)
+
     # ---------------------------------------------------- 4. result lines
     kernels = [
         dict(name="bsr_spmm", route="cuda",
@@ -822,7 +868,8 @@ def main():
              ms=k1["float64"]["ms"], plain_ms=k1["float64"]["plain_ms"],
              bound_ms=k1["float64"]["bound_ms"],
              bound_by=k1["float64"]["bound_by"],
-             library_ms=k1["float64"]["library_ms"]),
+             library_ms=k1["float64"]["library_ms"],
+             hits_sweep_bsr=whole),
         dict(name="sweep_epilogue", route="cuda",
              source="src/repro_torch/kernels/csrc/bsr_spmm.cu",
              replaces="src/repro/kernels/bsr_spmm.py:179",
@@ -859,6 +906,283 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def l1(a, b):
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).sum())
+
+
+def offline(g, card, ms, device_ms, timed):
+    """Phase 3e: the offline ranking path on the card at full scale.
+
+    (a) Table 7: QI-HITS, accelerated HITS and PageRank (f64, tol 1e-9) on
+    the eight datasets at scale 1.0, original and back-button graphs: iters
+    equal to the JAX package's (``TABLE7_ITERS``), wall ms per run, for
+    ``TABLE7_ON_CPU`` the vectors within 1e-10 L1 of the port on the host
+    CPU with equal iters; the paper's claims and the cosine and Spearman
+    agreement with QI-HITS printed as findings. (b) K1 on the whole
+    graph: ``hits_sweep_bsr`` on britannica (f32, bs 128, unpermuted):
+    one K1 call bit-equal to its plain version, ``iters + 5`` sweeps
+    against the card's ``RankingEngine`` (max abs < 1e-4 on the hub), K1's
+    device time per launch beside its bound, the plain version and
+    ``torch.sparse_bsr_tensor @``, and one segment-sum sweep
+    (``core.hits.hits_sweep``) of the same graph. (c) ``power_method_jit``
+    (f64 K1 sweep) against ``power_method``. (d) The engine on the card
+    against the CPU, with and without stragglers, and ``python -m
+    repro_torch.launch.rank`` with a checkpoint, then ``--resume``.
+    Returns K1's whole-graph numbers for the kernels line."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core import (EdgeList, accel_hits, accel_weights,
+                                  back_button, cosine, hits_sweep, pagerank,
+                                  power_method, power_method_jit, qi_hits,
+                                  spearman)
+    from repro_torch.core.engine import RankingEngine
+    from repro_torch.graph import PAPER_TABLE7, paper_dataset
+    from repro_torch.kernels import bsr_spmm as K
+    from repro_torch.kernels import ops as O
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    # ------------------------------------------------ (a) Table 7
+    algos = (("hits", qi_hits), ("accel", accel_hits), ("pr", pagerank))
+    table = {}
+    for name in PAPER_TABLE7:
+        g0 = paper_dataset(name, 1.0)
+        for tag, gg in (("orig", g0), ("bb", back_button(g0))):
+            row, walls, cpu_l1 = {}, [], []
+            for algo, fn in algos:
+                r, wall = timed(lambda: fn(gg, tol=1e-9, device="cuda"))
+                check(r.converged and r.v.shape == (gg.n_nodes,)
+                      and np.isfinite(r.v).all() and np.isfinite(r.aux).all(),
+                      f"table7 {name} {tag} {algo}: converged={r.converged}"
+                      f" after {r.iters} sweeps, or a bad vector")
+                if name in TABLE7_ON_CPU:
+                    o = fn(gg, tol=1e-9, device="cpu")
+                    d = max(l1(r.v, o.v), l1(r.aux, o.aux))
+                    check(r.iters == o.iters and d <= 1e-10,
+                          f"table7 {name} {tag} {algo}: card iters "
+                          f"{r.iters} vs cpu {o.iters}, L1 {d:.3e}")
+                    cpu_l1.append(d)
+                row[algo] = r
+                walls.append(wall)
+            iters = tuple(row[a].iters for a, _ in algos)
+            check(iters == TABLE7_ITERS[name, tag],
+                  f"table7 {name} {tag}: iters hits/accel/pr {iters}, the "
+                  f"JAX package's {TABLE7_ITERS[name, tag]}")
+            table[name, tag] = row
+            print(f"[table7 {name} {tag}] N={gg.n_nodes} E={gg.n_edges} "
+                  f"dangling={gg.dangling_fraction():.3f} iters hits/accel/pr="
+                  f"{iters} (= the JAX package's) wall ms hits/accel/pr="
+                  + "/".join(f"{w:.1f}" for w in walls)
+                  + (f"; the host CPU's vectors: max L1 {max(cpu_l1):.2e}, "
+                     "iters equal" if cpu_l1 else ""), flush=True)
+    wins = [n for n in PAPER_TABLE7 if table[n, "orig"]["accel"].iters
+            <= table[n, "orig"]["hits"].iters]
+    bb_wins = [n for n in PAPER_TABLE7 if table[n, "bb"]["accel"].iters
+               <= min(table[n, "bb"]["hits"].iters,
+                      table[n, "bb"]["pr"].iters)]
+    print(f"[claims] {card}: accel <= HITS on the original graphs on "
+          f"{len(wins)} of 8 (the paper allows one exception: "
+          f"{'holds' if len(wins) >= 7 else 'does not hold'}); accel <= "
+          f"min(HITS, PageRank) on the back-button graphs on {len(bb_wins)} "
+          f"of 8 ({'holds' if len(bb_wins) == 8 else 'does not hold'})")
+    for n in PAPER_TABLE7:
+        r = table[n, "orig"]
+        a, h = r["accel"], r["hits"]
+        print(f"[claims {n}] accel vs QI-HITS: authority cosine "
+              f"{cosine(a.aux, h.aux):.4f} spearman "
+              f"{spearman(a.aux, h.aux):.4f}; hub cosine "
+              f"{cosine(a.v, h.v):.4f} spearman {spearman(a.v, h.v):.4f}")
+    t_table = time.perf_counter() - t_phase
+
+    # ---------------------------------- (b) K1 over the whole graph
+    ca, ch = accel_weights(g.indeg(), g.outdeg())
+    t0 = time.perf_counter()
+    sweep, lt, lf = O.hits_sweep_bsr(g, ca, ch, bs=128, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    nb = lt.blocks.shape[0]
+    per_row = np.diff(lt.row_ptr.cpu().numpy())
+    edges_per_block = g.n_edges / nb
+    x = O._rows(torch.full((g.n_nodes, 1), 1.0 / g.n_nodes,
+                           dtype=torch.float32, device=dev), lt.n_pad)
+    cin = O._rows(torch.tensor(ch, dtype=torch.float32, device=dev)[:, None],
+                  lt.n_pad).contiguous()
+    scr = K.Scratch(dev)
+    y = K.bsr_scaled_matvec(*lt.operand, x, cin, bs=128, scratch=scr)
+    yp = K.bsr_scaled_matvec_plain(*lt.operand, x, cin, bs=128)
+    torch.cuda.synchronize()
+    err = (y - yp).abs().max().item()
+    check(torch.equal(y, yp) and not scr.cnt.any(),
+          f"K1 whole graph: max|y - plain| = {err:.3e} (bit-equal wanted), "
+          f"or the fold counters are not 0")
+    eng, eng_ms = timed(lambda: RankingEngine(g, "accel", n_shards=8,
+                                              device="cuda").run(tol=1e-10))
+    check(eng.converged, f"engine: not converged after {eng.iters} sweeps")
+    h = torch.full((g.n_nodes,), 1.0 / g.n_nodes, dtype=torch.float32,
+                   device=dev)
+    K.reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(eng.iters + 5):
+        h, _ = sweep(h)
+    torch.cuda.synchronize()
+    sweeps_ms = (time.perf_counter() - t0) * 1e3
+    launches = K.counters.bsr_spmm
+    check(launches == 2 * (eng.iters + 5),
+          f"hits_sweep_bsr: {launches} K1 launches for {eng.iters + 5} "
+          "sweeps, not 2 a sweep")
+    hub_err = float(np.abs(h.double().cpu().numpy() - eng.hub).max())
+    check(hub_err < 1e-4, f"hits_sweep_bsr: hub max abs {hub_err:.3e} from "
+          "the engine's")
+    h1 = torch.full((g.n_nodes,), 1.0 / g.n_nodes, dtype=torch.float32,
+                    device=dev)
+    t_k1 = device_ms(lambda: sweep(h1), 10, "bsr_spmm_kernel")
+    t_sweep = ms(lambda: sweep(h1), 10)
+    t_sweep_dev = device_ms(lambda: sweep(h1), 10)
+    t_plain = ms(lambda: K.bsr_scaled_matvec_plain(*lt.operand, x, cin,
+                                                   bs=128), 2)
+    moved = nbytes(*lt.operand, x, cin, y)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * nb * 128 * 128 / PEAK_FLOPS["float32"] * 1e3
+    xs = x * cin
+    mat = torch.sparse_bsr_tensor(lt.row_ptr.long(), lt.idx[:, 1].long(),
+                                  lt.blocks, size=(lt.n_pad, lt.n_pad))
+    try:
+        mat @ xs
+        t_lib = device_ms(lambda: mat @ xs, 5)
+        lib_kind = "torch.sparse_bsr_tensor @ dense, device"
+    except (RuntimeError, NotImplementedError) as e:
+        t_lib = None
+        lib_kind = f"unavailable: {str(e).splitlines()[0]}"
+    del mat, xs
+    # the same graph's segment-sum sweep (core.hits.hits_sweep), f32
+    edges = EdgeList.from_graph(g, dev)
+    ca32, ch32 = (torch.tensor(c, dtype=torch.float32, device=dev)
+                  for c in (ca, ch))
+    seg_sweep = hits_sweep(edges, ca=ca32, ch=ch32)
+    t_seg = ms(lambda: seg_sweep(h1), 20)
+    t_seg_dev = device_ms(lambda: seg_sweep(h1), 20)
+    seg_bytes = nbytes(edges.by_dst.gather, edges.by_dst.lengths,
+                       edges.by_src.gather, edges.by_src.lengths,
+                       ca32, ch32) + 4 * nbytes(h1)
+    whole = dict(launches=launches, max_abs_err=err, ms=t_k1,
+                 plain_ms=t_plain, bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 library_ms=t_lib, blocks=nb, sweep_ms=t_sweep,
+                 sweep_device_ms=t_sweep_dev, seg_sweep_ms=t_seg,
+                 seg_sweep_device_ms=t_seg_dev)
+    print(f"[K1 whole graph] {card}: britannica N={g.n_nodes} unpermuted, "
+          f"bs 128, f32, V 1: Lt {nb} blocks (of {len(per_row)}^2 = "
+          f"{len(per_row) ** 2}; {edges_per_block:.1f} edges a block; "
+          f"{per_row.min()}-{per_row.max()} per block row), built in "
+          f"{build_s:.2f} s; one call bit-equal to the plain version; "
+          f"ms={t_k1:.4f} (device, per launch) bound_ms="
+          f"{max(t_bytes, t_ops):.4f} ({moved / 1e9:.3f} GB at 3.35 TB/s) "
+          f"-> {moved / (t_k1 * 1e-3) / 1e12:.2f} TB/s; plain_ms="
+          f"{t_plain:.2f} library_ms="
+          + (f"{t_lib:.4f}" if t_lib is not None else "null")
+          + f" ({lib_kind})", flush=True)
+    print(f"[hits_sweep_bsr] {card}: {eng.iters + 5} sweeps ({launches} K1 "
+          f"launches) in {sweeps_ms:.1f} ms; hub max abs {hub_err:.2e} from "
+          f"the engine's ({eng.iters} sweeps, {eng_ms:.1f} ms on the card); "
+          f"one sweep {t_sweep:.3f} ms (events; device {t_sweep_dev:.3f} "
+          f"ms) vs the segment-sum sweep hits_sweep {t_seg:.3f} ms "
+          f"(events; device {t_seg_dev:.3f} ms, {seg_bytes / 1e6:.1f} MB of "
+          f"index and vectors against {2 * moved / 1e9:.2f} GB of blocks)",
+          flush=True)
+    del sweep, lt, lf, y, yp, scr, edges, seg_sweep
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ (c) power_method_jit
+    sw64, _, _ = O.hits_sweep_bsr(g, ca, ch, bs=128, dtype="float64",
+                                  device="cuda")
+    h64 = torch.full((g.n_nodes,), 1.0 / g.n_nodes, dtype=torch.float64,
+                     device=dev)
+    for ce in (1, 4):
+        host, host_ms = timed(lambda: power_method(sw64, h64, tol=1e-10,
+                                                   check_every=ce))
+        (v, aux, it, delta), jit_ms = timed(lambda: power_method_jit(
+            sw64, h64, tol=1e-10, check_every=ce))
+        dv, da = l1(v.cpu(), host.v), l1(aux.cpu(), host.aux)
+        if ce == 1:
+            check(int(it) == host.iters and dv <= 1e-10 and da <= 1e-10
+                  and float(delta) <= 1e-10,
+                  f"power_method_jit: iters {int(it)} vs host {host.iters},"
+                  f" L1 v {dv:.3e} aux {da:.3e}, delta {float(delta):.3e}")
+        print(f"[power_method_jit check_every={ce}] {card}: f64 K1 sweep on "
+              f"britannica: {int(it)} sweeps (host loop {host.iters}), "
+              f"delta {float(delta):.3e}, L1 v {dv:.2e} aux {da:.2e}; "
+              f"{jit_ms:.1f} ms (one graph: capture, build, launch, wait) vs "
+              f"the host loop {host_ms:.1f} ms", flush=True)
+    del sw64
+    torch.cuda.empty_cache()
+
+    # -------------------------------------- (d) engine and launcher
+    for kw in ({}, {"straggler_prob": 0.3, "stale_limit": 2}):
+        r, t_card = timed(lambda: RankingEngine(g, "accel", n_shards=8,
+                                                device="cuda", **kw)
+                          .run(tol=1e-10))
+        t0 = time.perf_counter()
+        o = RankingEngine(g, "accel", n_shards=8, device="cpu",
+                          **kw).run(tol=1e-10)
+        t_cpu = (time.perf_counter() - t0) * 1e3
+        d = max(l1(r.hub, o.hub), l1(r.authority, o.authority))
+        check(r.converged and r.iters == o.iters and d <= 1e-10
+              and r.stale_events == o.stale_events
+              and (r.stale_events > 0) == bool(kw),
+              f"engine {kw}: card iters {r.iters} stale {r.stale_events} vs "
+              f"cpu iters {o.iters} stale {o.stale_events}, L1 {d:.3e}")
+        print(f"[engine {kw or 'no stragglers'}] {card}: 8 shards, "
+              f"{r.iters} sweeps, {r.stale_events} stale events (= the CPU "
+              f"engine's); {t_card:.1f} ms on the card, {t_cpu:.1f} ms on "
+              f"the host CPU; L1 {d:.2e}", flush=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_rank_"))
+    try:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        base = [sys.executable, "-m", "repro_torch.launch.rank",
+                "--dataset", "britannica", "--scale", "1.0", "--backbutton",
+                "--ckpt", str(tmp / "ckpt"), "--ckpt-every", "2"]
+        outs = []
+        for extra in ([], ["--resume"]):
+            t0 = time.perf_counter()
+            r = subprocess.run(base + extra, capture_output=True, text=True,
+                               env=env, cwd=ROOT, timeout=600)
+            check(r.returncode == 0, f"launch.rank {extra} exited "
+                  f"{r.returncode}: {r.stderr[-2000:]}")
+            lines = r.stdout.splitlines()
+            res = [x for x in lines if x.startswith("accel:")]
+            top = [x for x in lines if x.startswith("top authorities:")]
+            check(bool(res) and "converged=True" in res[0] and bool(top),
+                  f"launch.rank {extra}: {r.stdout[-1500:]}")
+            pages = [t["page"] for t in json.loads(top[0].split(":", 1)[1])]
+            outs.append((res[0], int(res[0].split("iters=")[1].split()[0]),
+                         pages, time.perf_counter() - t0))
+        steps = sorted(p.name for p in (tmp / "ckpt").iterdir())
+        check(bool(steps), "launch.rank wrote no checkpoint")
+        # the resumed run restarts after the last checkpoint (every 2nd
+        # sweep): one sweep more where that was the converged sweep itself
+        k = outs[0][1]
+        want = k + 1 if k % 2 == 0 else k
+        check(outs[1][1] == want and outs[1][2] == outs[0][2],
+              f"launch.rank --resume: {outs[1][0]} (want iters={want}) vs "
+              f"{outs[0][0]}, top {outs[1][2]} vs {outs[0][2]}")
+        print(f"[launch.rank] britannica --backbutton on the card: "
+              f"{outs[0][0]} ({outs[0][3]:.1f} s in all); checkpoints "
+              f"{steps}; --resume from the last: {outs[1][0]} "
+              f"({outs[1][3]:.1f} s), the same top authorities", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[offline] phase 3e: {time.perf_counter() - t_phase:.1f} s "
+          f"(Table 7 {t_table:.1f} s)", flush=True)
+    return whole
 
 
 def served_l1(a, b):

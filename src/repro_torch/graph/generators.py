@@ -103,3 +103,7 @@ def paper_dataset(name: str, scale: float = 1.0, seed: int = 0) -> Graph:
         seed=seed + (zlib.crc32(name.encode()) % 65536),
     )
     return generate_webgraph(spec)
+
+
+def all_paper_datasets(scale: float = 1.0, seed: int = 0):
+    return {name: paper_dataset(name, scale, seed) for name in PAPER_TABLE7}

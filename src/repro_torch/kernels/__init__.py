@@ -5,6 +5,8 @@ bsr_spmm: block-sparse adjacency x multi-vector with fused Ca/Ch scaling
           call (``K2Graph``), with its sweep-epilogue kernels.
 seg_matmul: tiled segment-sum of gathered edge messages (K3), behind
           ``ops.seg_aggregate``.
+ops.hits_sweep_bsr: the whole-graph accelerated-HITS sweep, K1 twice a
+          sweep (one column over the unpermuted graph).
 The kernels build at first use from ``csrc/`` (``kernels.build``); on CPU
 tensors every wrapper runs its plain version. K1 and K3 compute their
 pieces (blocks, tiles) in parallel and fold them in order through a
@@ -17,8 +19,9 @@ from .bsr_spmm import (BsrOperand, K2Graph, LoopState,
                        bsr_scaled_matvec_plain, counters, reset_counters,
                        sweep_certificate, sweep_certificate_plain,
                        sweep_epilogue, sweep_epilogue_plain)
-from .ops import (DeviceBSR, DeviceSegments, bsr_converge, bsr_matvec, bsr_revalue,
-                  build_tiled_segments, classify_exit, pad_empty_rows,
+from .ops import (DeviceBSR, DeviceSegments, bsr_converge, bsr_matvec,
+                  bsr_nblocks, bsr_revalue, build_tiled_segments,
+                  classify_exit, hits_sweep_bsr, pad_empty_rows,
                   pad_messages, seg_aggregate)
 from .seg_matmul import seg_matmul, seg_matmul_plain
 
@@ -27,7 +30,7 @@ __all__ = [
     "bsr_scaled_matvec", "bsr_scaled_matvec_plain", "counters",
     "reset_counters", "sweep_certificate", "sweep_certificate_plain",
     "sweep_epilogue", "sweep_epilogue_plain", "DeviceBSR", "bsr_converge",
-    "bsr_matvec", "bsr_revalue", "classify_exit", "pad_empty_rows",
+    "bsr_matvec", "bsr_nblocks", "bsr_revalue", "hits_sweep_bsr", "classify_exit", "pad_empty_rows",
     "build_tiled_segments", "pad_messages", "seg_aggregate", "seg_matmul",
     "seg_matmul_plain",
 ]

@@ -22,6 +22,10 @@ PyTorch version of the same signature beside it:
   ``k2_steps`` describes the graph; ``k2_rehearse`` runs that description
   with the plain versions on the CPU.
 
+``PowerGraph`` is ``core.power.power_method_jit``'s loop on the card: a
+WHILE node over a caller-captured chunk of sweeps and a residual kernel
+(``csrc/bsr_spmm.cu::pm_graph_build``), the same conditional-node design.
+
 A wrapper runs its plain version only when it is given CPU tensors; for
 CUDA tensors it launches its kernel or raises. The kernels build at first
 use (``kernels.build``), which also holds ``counters``: one object, shared
@@ -97,6 +101,8 @@ def _declare(lib):
     lib.k2_graph_launch.restype = i
     lib.k2_graph_destroy.argtypes = [p]
     lib.k2_graph_destroy.restype = i
+    lib.pm_graph_build.argtypes = [p, i, p, p, ll, i, p, p, ll, ll, d, p]
+    lib.pm_graph_build.restype = i
 
 
 def _lib():
@@ -818,3 +824,47 @@ def bsr_converge_cols(lt: BsrOperand, lf: BsrOperand, h0, ca, ch, mask,
         return graph.run()
     finally:
         graph.destroy()
+
+
+# ------------------------------------------------- power_method_jit's graph
+
+
+class PowerGraph:
+    """``core.power.power_method_jit`` on the card as one executable CUDA
+    graph (``csrc/bsr_spmm.cu::pm_graph_build``): an init kernel (k = 0,
+    delta = inf, condition = max_iter > 0), then a WHILE node whose body is
+    ``sweep_graph`` (a ``cudaGraph_t``: the caller's captured chunk of
+    ``check_every`` sweeps, which starts with v_prev = v) as a child graph,
+    followed by the residual kernel: delta = max over columns of
+    ‖v − v_prev‖₁, k += check_every, condition = k < max_iter and delta >
+    tol. ``v``/``v_prev`` (n,) or (n, V), ``k`` an int64 and ``delta`` an
+    f64 device scalar; every pointer must outlive the graph."""
+
+    def __init__(self, sweep_graph: int, v, v_prev, k, delta, *,
+                 check_every: int, max_iter: int, tol: float):
+        _check(v.is_cuda and v.dtype in _DTYPE_CODE and v.is_contiguous()
+               and v_prev.shape == v.shape and v_prev.dtype == v.dtype
+               and v_prev.is_contiguous(),
+               "v/v_prev must be contiguous f64/f32/bf16 of one shape on "
+               "the card")
+        _check(k.dtype == torch.int64 and delta.dtype == torch.float64
+               and k.device == v.device == delta.device,
+               "k must be int64 and delta f64, on v's device")
+        self.device = v.device
+        exe = ctypes.c_void_p()
+        err = _lib().pm_graph_build(
+            sweep_graph, _DTYPE_CODE[v.dtype], v.data_ptr(),
+            v_prev.data_ptr(), v.shape[0], v.shape[1] if v.dim() == 2 else 1,
+            k.data_ptr(), delta.data_ptr(), int(check_every), int(max_iter),
+            tol_in(tol, v.dtype), ctypes.byref(exe))
+        _raise_on(err, "pm_graph_build")
+        self.exec = exe.value
+
+    def launch(self):
+        _raise_on(_lib().k2_graph_launch(self.exec, _stream(self.device)),
+                  "power_method_jit graph")
+
+    def destroy(self):
+        if self.exec:
+            _raise_on(_lib().k2_graph_destroy(self.exec), "k2_graph_destroy")
+            self.exec = None

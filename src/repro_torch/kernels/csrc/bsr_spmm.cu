@@ -11,6 +11,8 @@
 // residual against the old one, apply the optional top-k rank-stability
 // rule, and update conv / the sweep count / the stop flag. K2 runs the
 // whole loop as one CUDA graph (k2_graph_build, at the end of this file).
+// pm_graph_build puts the same kind of WHILE node around a caller's
+// captured sweeps: core.power.power_method_jit on the card.
 //
 // What bounds them on the H100: K1 reads every stored block once per call
 // (an f64 main-path operator is ~43 MB against 50 MB of L2), so it is
@@ -1091,6 +1093,80 @@ struct K2Builder {
   }
 };
 
+// ------------------------------------------------- power_method_jit
+//
+// core.power.power_method_jit on the card: one graph of an init kernel and
+// a WHILE node whose body is the caller's captured chunk of sweeps (a
+// child graph: v_prev = v, then check_every sweeps of v) and
+// pm_residual_kernel, which sets the condition. The counterpart of the
+// reference's lax.while_loop: no host read until the caller's.
+
+// k = 0, delta = inf, condition = 0 < max_iter (inf > tol)
+__global__ void pm_init_kernel(long long* k, double* delta, long long max_iter,
+                               cudaGraphConditionalHandle cond) {
+  *k = 0;
+  *delta = INFINITY;
+  cudaGraphSetConditional(cond, max_iter > 0 ? 1 : 0);
+}
+
+constexpr int PM_THREADS = 1024;
+
+// delta = max over columns of sum_i |v - v_prev| (each difference in T,
+// the sum in f64 in a fixed order, rounded once to T), k += check_every,
+// condition = k < max_iter && delta > tol; one CTA
+template <typename T>
+__global__ void __launch_bounds__(PM_THREADS)
+pm_residual_kernel(const T* __restrict__ v, const T* __restrict__ v_prev,
+                   long long n, int V, long long* k, double* delta,
+                   long long check_every, long long max_iter, double tol,
+                   cudaGraphConditionalHandle cond) {
+  using A = typename Num<T>::Acc;
+  __shared__ double red[PM_THREADS / 32];
+  const int t = threadIdx.x;
+  double worst = 0.0;
+  for (int c = 0; c < V; ++c) {
+    double s = 0.0;
+    for (long long i = t; i < n; i += PM_THREADS) {
+      const A d = rnd<T>(Num<T>::to_acc(v[i * V + c]) - Num<T>::to_acc(v_prev[i * V + c]));
+      s += fabs((double)d);
+    }
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if (t % 32 == 0) red[t / 32] = s;
+    __syncthreads();
+    if (t == 0) {
+      double tot = 0.0;
+      for (int w = 0; w < PM_THREADS / 32; ++w) tot += red[w];
+      const double col = (double)rnd<T>((A)tot);
+      worst = (c == 0 || col > worst || col != col) ? col : worst;
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    const long long kk = *k + check_every;
+    *k = kk;
+    *delta = worst;
+    cudaGraphSetConditional(cond, (kk < max_iter && worst > tol) ? 1 : 0);
+  }
+}
+
+template <typename T>
+cudaError_t pm_residual_node(cudaGraphNode_t* node, cudaGraph_t body,
+                             const cudaGraphNode_t* dep, const void* v,
+                             const void* v_prev, long long n, int V,
+                             long long* k, double* delta, long long check_every,
+                             long long max_iter, double tol,
+                             cudaGraphConditionalHandle cond) {
+  const T* vp = static_cast<const T*>(v);
+  const T* pp = static_cast<const T*>(v_prev);
+  void* params[] = {&vp, &pp, &n, &V, &k, &delta, &check_every, &max_iter, &tol, &cond};
+  cudaKernelNodeParams kp = {};
+  kp.func = reinterpret_cast<void*>(pm_residual_kernel<T>);
+  kp.gridDim = dim3(1);
+  kp.blockDim = dim3(PM_THREADS);
+  kp.kernelParams = params;
+  return cudaGraphAddKernelNode(node, body, dep, 1, &kp);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1206,6 +1282,73 @@ int k2_graph_launch(void* exec, void* stream) {
 
 int k2_graph_destroy(void* exec) {
   return cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
+}
+
+// the executable graph of power_method_jit: init, then WHILE (condition)
+// { sweep_graph (a child graph: the caller's captured chunk of sweeps);
+// pm_residual_kernel }. v / v_prev are row-major (n, V) of dtype; k and
+// delta are device scalars the graph writes; *exec gets the executable
+// graph (launch with k2_graph_launch, free with k2_graph_destroy), or
+// null on an error
+int pm_graph_build(void* sweep_graph, int dtype, const void* v,
+                   const void* v_prev, long long n, int V, long long* k,
+                   double* delta, long long check_every, long long max_iter,
+                   double tol, void** exec) {
+  *exec = nullptr;
+  if (n <= 0 || V <= 0 || check_every <= 0) return cudaErrorInvalidValue;
+  cudaGraph_t graph = nullptr;
+  cudaError_t err = cudaGraphCreate(&graph, 0);
+  if (err != cudaSuccess) return err;
+  cudaGraphConditionalHandle cond = 0;
+  err = cudaGraphConditionalHandleCreate(&cond, graph, 0, 0);
+  cudaGraphNode_t init = nullptr, loop = nullptr, child = nullptr, res = nullptr;
+  if (err == cudaSuccess) {
+    void* params[] = {&k, &delta, &max_iter, &cond};
+    cudaKernelNodeParams kp = {};
+    kp.func = reinterpret_cast<void*>(pm_init_kernel);
+    kp.gridDim = dim3(1);
+    kp.blockDim = dim3(1);
+    kp.kernelParams = params;
+    err = cudaGraphAddKernelNode(&init, graph, nullptr, 0, &kp);
+  }
+  cudaGraphNodeParams np = {};
+  if (err == cudaSuccess) {
+    np.type = cudaGraphNodeTypeConditional;
+    np.conditional.handle = cond;
+    np.conditional.type = cudaGraphCondTypeWhile;
+    np.conditional.size = 1;
+    err = cudaGraphAddNode(&loop, graph, &init, 1, &np);
+  }
+  if (err == cudaSuccess) {
+    err = cudaGraphAddChildGraphNode(&child, np.conditional.phGraph_out[0], nullptr, 0,
+                                     static_cast<cudaGraph_t>(sweep_graph));
+  }
+  if (err == cudaSuccess) {
+    cudaGraph_t body = np.conditional.phGraph_out[0];
+    switch (dtype) {
+      case kF64:
+        err = pm_residual_node<double>(&res, body, &child, v, v_prev, n, V, k, delta,
+                                       check_every, max_iter, tol, cond);
+        break;
+      case kF32:
+        err = pm_residual_node<float>(&res, body, &child, v, v_prev, n, V, k, delta,
+                                      check_every, max_iter, tol, cond);
+        break;
+      case kBF16:
+        err = pm_residual_node<__nv_bfloat16>(&res, body, &child, v, v_prev, n, V, k,
+                                              delta, check_every, max_iter, tol, cond);
+        break;
+      default: err = cudaErrorInvalidValue;
+    }
+  }
+  if (err == cudaSuccess) {
+    cudaGraphExec_t ge = nullptr;
+    err = cudaGraphInstantiate(&ge, graph, 0);
+    if (err == cudaSuccess) *exec = ge;
+  }
+  cudaGraphDestroy(graph);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return err;
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Host-side BSR and segment preparation and the wrappers over the
-kernels (port of ``repro.kernels.ops``; ``hits_sweep_bsr`` is not ported,
-ROADMAP Queue 1 item 9)."""
+kernels (port of ``repro.kernels.ops``), with the whole-graph
+accelerated-HITS sweep on K1 (``hits_sweep_bsr``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -146,11 +146,13 @@ def _rows(t, n_pad: int):
     return torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t
 
 
-def bsr_matvec(dbsr: DeviceBSR, x, cin=None, accum_dtype=None):
+def bsr_matvec(dbsr: DeviceBSR, x, cin=None, accum_dtype=None,
+               scratch: Optional[Scratch] = None):
     """y = A @ (x * cin). x: (N,) | (N, V); cin: None | (N,) shared diagonal
     | (N, V) per-column diagonals; returns the shape matching x.
     ``accum_dtype`` None is the kernel's own (f64 for f64 blocks, else
-    f32)."""
+    f32); ``scratch`` is K1's workspace on the card (a new one when
+    None)."""
     squeeze = x.dim() == 1
     xv = x[:, None] if squeeze else x
     xv = _rows(xv, dbsr.n_pad).contiguous()
@@ -160,7 +162,8 @@ def bsr_matvec(dbsr: DeviceBSR, x, cin=None, accum_dtype=None):
         cv = cin[:, None] if cin.dim() == 1 else cin
         cv = _rows(cv.to(xv.dtype), dbsr.n_pad).contiguous()
     y = bsr_scaled_matvec(dbsr.blocks, dbsr.idx, dbsr.row_ptr, xv, cv,
-                          bs=dbsr.bs, accum_dtype=accum_dtype)
+                          bs=dbsr.bs, accum_dtype=accum_dtype,
+                          scratch=scratch)
     y = y[: dbsr.n_nodes]
     return y[:, 0] if squeeze else y
 
@@ -207,6 +210,57 @@ def bsr_converge(lt: DeviceBSR, lfwd: DeviceBSR, h0, ca, ch, mask, tol,
             raise ValueError(f"inv has {inv.shape[0]} rows, inputs {n}")
         h, a = h.index_select(0, inv), a.index_select(0, inv)
     return h, a, conv, res
+
+
+def bsr_nblocks(g: Graph, bs: int, transpose: bool = False) -> int:
+    """Blocks of ``DeviceBSR.build(g, bs, transpose)`` (the nonzero blocks
+    plus one zero block per empty block row), counted from the edges
+    alone, before any block is made."""
+    rows, cols = (g.dst, g.src) if transpose else (g.src, g.dst)
+    nbr = (g.n_nodes + bs - 1) // bs
+    keys = np.unique((rows // bs).astype(np.int64) * nbr + cols // bs)
+    return len(keys) + nbr - len(np.unique(keys // nbr))
+
+
+def hits_sweep_bsr(g: Graph, ca=None, ch=None, bs: int = 128,
+                   dtype="float32", device="cuda"):
+    """Accelerated-HITS sweep on the BSR kernel path (K1).
+
+    a = Lᵀ(h ⊙ ch);  h' = L(a ⊙ ca);  h' ← h'/‖h'‖₁. Returns sweep(h)->(h',a)
+    plus the two DeviceBSR structures (LT for the authority step, L for the
+    hub step). ``ca``/``ch``: None or (N,) arrays. The operators are built
+    in the graph's own node order (no blocking permutation), as the
+    reference builds them, so a whole crawl stores nearly every block:
+    britannica's Lᵀ holds 27,214 of 165 x 165 possible blocks. Each
+    operator's sweep keeps one K1 workspace. On the card the operators'
+    size is checked against the card's free memory before any block is
+    built, and a graph that does not fit raises ``MemoryError``.
+    """
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype)
+    if dev.type == "cuda":
+        need = (bsr_nblocks(g, bs, True) + bsr_nblocks(g, bs, False)) \
+            * bs * bs * torch.empty((), dtype=dt).element_size()
+        free, _total = torch.cuda.mem_get_info(dev)
+        if need > free:
+            raise MemoryError(
+                f"hits_sweep_bsr: the two BSR operators of this graph "
+                f"(N={g.n_nodes}, bs={bs}, {dt}) need {need / 2**30:.1f} GiB "
+                f"of device memory, {free / 2**30:.1f} GiB is free")
+    lt = DeviceBSR.build(g, bs, transpose=True, dtype=dtype, device=dev)
+    l = DeviceBSR.build(g, bs, transpose=False, dtype=dtype, device=dev)  # noqa: E741
+    ca_t = None if ca is None else torch.as_tensor(ca).to(dev, dt)
+    ch_t = None if ch is None else torch.as_tensor(ch).to(dev, dt)
+    scratch = (Scratch(dev), Scratch(dev)) if dev.type == "cuda" \
+        else (None, None)
+
+    def sweep(h):
+        a = bsr_matvec(lt, h, ch_t, scratch=scratch[0])
+        h_new = bsr_matvec(l, a, ca_t, scratch=scratch[1])
+        h_new = h_new / (h_new.abs().sum(dim=0, keepdim=h.dim() > 1) + 1e-30)
+        return h_new, a
+
+    return sweep, lt, l
 
 
 def classify_exit(conv, res, tol: float, max_iter: int, rank_k: int = 0,

@@ -750,3 +750,106 @@ def test_restored_plan_on_the_card(cuda, tmp_path):
         assert x.iters == y.iters
         assert np.abs(x.authority - y.authority).sum() <= 1e-10
         assert np.abs(x.hub - y.hub).sum() <= 1e-10
+
+
+# ------------------------------------------- the offline ranking path
+
+
+@pytest.mark.cuda
+def test_k1_whole_graph_v1_bit_equal(cuda):
+    """K1 at ``hits_sweep_bsr``'s shape: britannica's unpermuted Lᵀ at
+    scale 1.0 (27,214 blocks of 128, 165 per block row), f32, V 1, a
+    shared (n_pad, 1) diagonal: bit for bit the plain version (the block
+    products of 0/1 blocks and f32 values are exact in f64, and the fold
+    adds in idx order), twice, with the fold counters back at 0."""
+    from repro_torch.graph import paper_dataset
+    g = paper_dataset("britannica", 1.0)
+    lt = pops.DeviceBSR.build(g, 128, transpose=True, dtype="float32",
+                              device=cuda)
+    assert lt.blocks.shape[0] == pops.bsr_nblocks(g, 128, transpose=True)
+    assert lt.blocks.shape[0] > 27000
+    _, ch = accel_weights(g.indeg(), g.outdeg())
+    rng = np.random.default_rng(7)
+    cin = pops._rows(torch.tensor(ch, dtype=torch.float32, device=cuda)
+                     [:, None], lt.n_pad).contiguous()
+    scr = K.Scratch(cuda)
+    for x in (torch.full((lt.n_pad, 1), 1.0 / g.n_nodes,
+                         dtype=torch.float32, device=cuda),
+              torch.tensor(rng.random((lt.n_pad, 1)), dtype=torch.float32,
+                           device=cuda)):
+        y = K.bsr_scaled_matvec(lt.blocks, lt.idx, lt.row_ptr, x, cin,
+                                bs=128, scratch=scr)
+        y2 = K.bsr_scaled_matvec(lt.blocks, lt.idx, lt.row_ptr, x, cin,
+                                 bs=128, scratch=scr)
+        yp = K.bsr_scaled_matvec_plain(lt.blocks, lt.idx, lt.row_ptr, x,
+                                       cin, bs=128)
+        assert torch.equal(y, yp) and torch.equal(y, y2)
+        assert not scr.cnt.any()
+    del lt, scr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("check_every", [1, 3])
+def test_power_method_jit_graph_matches_host_loop(cuda, check_every):
+    """``power_method_jit``'s CUDA graph (a WHILE node over the captured
+    K1 sweep of ``hits_sweep_bsr``, f64) against ``power_method`` on the
+    same sweep: at check_every 1 equal iters and 1e-10 L1 on v and aux;
+    at 3 (the graph's residual spans 3 sweeps, the host loop's one) a
+    multiple of 3 no smaller than the host loop's, v within 1e-9 as in
+    ``tests/test_system.py``; delta <= tol; max_iter 0 runs nothing."""
+    from repro_torch.core.power import power_method, power_method_jit
+    from repro_torch.graph import paper_dataset
+    g = paper_dataset("jobs", 0.2)
+    ca, ch = accel_weights(g.indeg(), g.outdeg())
+    sweep, _, _ = pops.hits_sweep_bsr(g, ca, ch, dtype="float64",
+                                      device=cuda)
+    h0 = torch.full((g.n_nodes,), 1.0 / g.n_nodes, dtype=torch.float64,
+                    device=cuda)
+    host = power_method(sweep, h0, tol=1e-10, check_every=check_every)
+    v, aux, iters, delta = power_method_jit(sweep, h0, tol=1e-10,
+                                            check_every=check_every)
+    assert v.is_cuda and float(delta) <= 1e-10
+    if check_every == 1:
+        assert int(iters) == host.iters
+        assert np.abs(v.cpu().numpy() - host.v).sum() <= 1e-10
+        assert np.abs(aux.cpu().numpy() - host.aux).sum() <= 1e-10
+    else:
+        assert int(iters) % 3 == 0 and int(iters) >= host.iters
+        np.testing.assert_allclose(v.cpu().numpy(), host.v, atol=1e-9)
+    v0, aux0, it0, d0 = power_method_jit(sweep, h0, max_iter=0)
+    assert int(it0) == 0 and torch.equal(v0, h0) and not aux0.any()
+    assert float(d0) == float("inf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stragglers", [False, True])
+def test_engine_on_card_matches_cpu(cuda, stragglers):
+    """``RankingEngine`` on the card against the same engine on the CPU:
+    equal iters and stale events, 1e-10 L1 on hub and authority."""
+    from repro_torch.core.engine import RankingEngine
+    from repro_torch.graph import paper_dataset
+    g = paper_dataset("jobs", 0.2)
+    kw = dict(n_shards=8)
+    if stragglers:
+        kw.update(straggler_prob=0.3, stale_limit=2, seed=3)
+    got = RankingEngine(g, "accel", device=cuda, **kw).run(tol=1e-10)
+    ref = RankingEngine(g, "accel", device="cpu", **kw).run(tol=1e-10)
+    assert got.converged and got.iters == ref.iters
+    assert got.stale_events == ref.stale_events
+    assert (got.stale_events > 0) == stragglers
+    assert np.abs(got.hub - ref.hub).sum() <= 1e-10
+    assert np.abs(got.authority - ref.authority).sum() <= 1e-10
+
+
+@pytest.mark.cuda
+def test_hits_sweep_bsr_raises_past_free_memory(cuda, monkeypatch):
+    """Operators larger than the card's free memory raise before any block
+    is built; nothing switches path."""
+    from repro_torch.graph import paper_dataset
+    g = paper_dataset("jobs", 0.05)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (1 << 20, 80 << 30))
+    with pytest.raises(MemoryError, match="hits_sweep_bsr"):
+        pops.hits_sweep_bsr(g, device=cuda)

@@ -386,10 +386,15 @@ def test_randomized_burst_duplicate_heavy(g):
     """A multi-threaded, duplicate-heavy burst through a tight pending
     bound and a 1-entry vector cache drains without deadlock, recycles a
     plan (3 vocabulary root sets under v_max=2 admit at most 9 unions) and
-    resolves every ticket to the sync path's scores."""
+    resolves every ticket to the sync path's scores (both vectors).
+
+    The reference's draw (78 picks) and its assertions
+    (``tests/test_serve_queue.py::test_randomized_burst_duplicate_heavy_stress``):
+    every swept batch built or hit a plan, at least one plan was recycled,
+    at most one build per distinct union."""
     rng = np.random.default_rng(11)
     vocab = [rng.choice(g.n_nodes, size=4, replace=False) for _ in range(3)]
-    picks = [vocab[i] for i in rng.integers(0, len(vocab), 48)]
+    picks = [vocab[i] for i in rng.integers(0, len(vocab), 78)]
     ref = {root_set_key(q): r for q, r in zip(vocab, svc_for(g).rank(vocab))}
     svc = svc_for(g, v_max=2, cache_size=1)
     tickets, errs = [], []
@@ -407,8 +412,11 @@ def test_randomized_burst_duplicate_heavy(g):
         o = ref[r.key]
         assert (r.nodes == o.nodes).all()
         assert np.abs(r.authority - o.authority).sum() <= 1e-10
+        assert np.abs(r.hub - o.hub).sum() <= 1e-10
     s = svc.stats
-    assert s["plan_hits"] >= 1 and s["plan_misses"] <= 9, s
+    assert 1 <= s["plan_hits"] + s["plan_misses"] <= s["batches"], s
+    assert s["plan_hits"] >= 1, (s, q.stats)
+    assert s["plan_misses"] <= 9, s
     assert q.stats["max_batch"] <= 2
 
 
