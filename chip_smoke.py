@@ -681,12 +681,17 @@ def main():
             t = getattr(e, "self_cuda_time_total", 0)
         if t:
             dev_us[e.key] = t
-    busy = sum(dev_us.values()) / 1e3
+    # busy: each kernel and copy once, as a device event (summing every
+    # key's self device time counts an aten op's copies twice)
+    split = device_split(prof)
+    busy = split["all"]
     if busy:
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
         print(f"[main f64 profile] device busy {busy:.2f} ms of "
               f"{wall_prof * 1e3:.1f} ms wall (idle share "
-              f"{1 - busy / (wall_prof * 1e3):.3f}); by device time: "
+              f"{1 - busy / (wall_prof * 1e3):.3f}; every key's self device "
+              f"time, the formula of PRs 14-16, gives {split['key_sum']:.2f} "
+              f"ms); by key's self device time: "
               + "; ".join(f"{k[:48]} {v / 1e3:.2f} ms" for k, v in top))
     else:
         print("[main f64 profile] the profiler reported no device time: "
@@ -858,6 +863,9 @@ def main():
 
     # ------------------------------------- 3e. the offline ranking path
     whole = offline(g, card, ms, device_ms, timed)
+
+    # ------------------------------ 3f. the sharded backend (sparse.dist)
+    sharded_phase(g, queries, card)
 
     # ---------------------------------------------------- 4. result lines
     kernels = [
@@ -1553,6 +1561,305 @@ def launcher_phase(g, tmp):
     print(f"[launcher] relaunch on the spill dir: {restored[0]}; "
           + "; ".join(x for x in r.stdout.splitlines()
                       if x.startswith(("cache:", "plans:"))), flush=True)
+
+
+def device_split(prof):
+    """Device ms from a profile: every kernel and copy once (the device
+    events), and the part launched under each ``dist.*`` range (the
+    segment sums and the collectives of ``sparse.dist``)."""
+    from torch.autograd import DeviceType
+    out = {"all": 0.0}
+    # the busy sum of PRs 14-16: every key's self device time, where an aten
+    # op's own kernels and copies count again as device events
+    out["key_sum"] = sum(getattr(e, "self_device_time_total", 0) or 0
+                         for e in prof.key_averages())
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
+            out["all"] += e.time_range.elapsed_us()
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        us = sum(k.duration for k in e.kernels)
+        p = e
+        while p is not None and not p.name.startswith("dist."):
+            p = p.cpu_parent
+        if p is not None:
+            out[p.name] = out.get(p.name, 0.0) + us
+    return {k: v / 1e3 for k, v in out.items()}
+
+
+def sharded_phase(g, queries, card):
+    """Phase 3f: the sharded backend (``sparse.dist``, one process over a
+    tuple of devices) at the main path's configuration: the 3 batches
+    through ``backend="sharded"`` in both modes at S in {1, 2, 4} shards
+    placed round-robin over the visible cards (logical shards where there
+    is one card: they check the layout and the arithmetic, not the
+    interconnect), every query held to a CPU dense service (1e-10 L1,
+    equal nodes, iters and status), the mesh's segment sums at 2 S per
+    sweep, a repeat batch served from cache; per batch the plan and sweep
+    stage ms; per sweep the host reads (profiler) and the wire bytes
+    (mesh counters) beside ``collective_bytes_per_sweep_cols``; from a
+    profiled rerun the device time of the segment sums against the
+    collectives, and the idle share. Then a weight-only delta (patched,
+    never replanned), a sharded plan spilled and restored, and the
+    whole-graph ``make_dist_hits_sweep`` on britannica in all three modes
+    on a (4, 2) mesh for 60 sweeps against the card's ``accel_hits``."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import accel_hits, accel_weights
+    from repro_torch.serve import PipelineJob, RankService, RankServiceConfig
+    from repro_torch.sparse import dist
+    t_phase = time.perf_counter()
+    base = dict(v_max=8, dtype="float64", tol=1e-10)
+    want = RankService(g, RankServiceConfig(device="cpu", backend="dense",
+                                            **base)).rank(queries)
+
+    def held(got, ref, label):
+        worst = 0.0
+        for i, (r, o) in enumerate(zip(got, ref)):
+            d = served_l1(r, o)
+            worst = max(worst, d)
+            check(np.array_equal(r.nodes, o.nodes) and r.status == o.status
+                  and r.iters == o.iters and d <= 1e-10
+                  and np.isfinite(r.authority).all()
+                  and np.isfinite(r.hub).all(),
+                  f"{label} query {i}: card {r.status} iters={r.iters} vs "
+                  f"cpu dense {o.status} iters={o.iters}, L1 {d:.3e}")
+        return worst
+
+    def stage_ms(svc, stage):
+        last = max(t[0] for t in svc.pipeline.trace)
+        return [round((t1 - t0) * 1e3, 2) for run, _j, st, t0, t1
+                in svc.pipeline.trace if run == last and st == stage]
+
+    def sharded(mode, s, **kw):
+        return RankService(g, RankServiceConfig(
+            device="cuda", backend="sharded", shard_mode=mode,
+            shard_devices=s, **base, **kw))
+
+    def ms_of(fn, n):
+        """Mean ms per call of fn over n calls after a warm-up (events)."""
+        fn()
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / n
+
+    def reads_per_sweep(be, batch, n=5):
+        """Host reads (``aten::_local_scalar_dense``) per call of the sweep
+        body, over n calls on the batch's plan."""
+        plan = be.plan(batch)
+        h, ca, ch, m = be._vector_layout(plan, batch.h0, batch.ca, batch.ch,
+                                         batch.mask, batch.dtype)
+        sweep = dist.make_dist_hits_sweep_cols(be.mesh, be.mode, plan.n_pad)
+        sweep(h, ca, ch, m, plan.layouts)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(n):
+                h, _a = sweep(h, ca, ch, m, plan.layouts)
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if e.key == "aten::_local_scalar_dense") / n
+
+    for mode in ("replicated", "dual_blocked"):
+        for s in (1, 2, 4):
+            label = f"sharded {mode} S={s}"
+            svc = sharded(mode, s)
+            be = svc._backend_for(0, 0)
+            mesh = be.mesh
+            check(be.name == "sharded" and mesh.size == s
+                  and all(d.type == "cuda" for d in mesh.devices),
+                  f"{label}: mesh {mesh}")
+            torch.cuda.synchronize()
+            mesh.reset_counters()
+            t0 = time.perf_counter()
+            got = svc.rank(queries)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            per_batch = [max(r.iters for r in got[8 * b:8 * b + 8])
+                         for b in range(3)]
+            sweeps = sum(n + 1 for n in per_batch)
+            worst = held(got, want, label)
+            check(mesh.segment_sums == 2 * s * sweeps,
+                  f"{label}: {mesh.segment_sums} segment sums for {sweeps} "
+                  f"sweeps, not 2 S per sweep")
+            run_bytes = dict(mesh.collective_bytes)
+            plan_ms, sweep_ms = stage_ms(svc, "plan"), stage_ms(svc, "sweep")
+            mesh.reset_counters()
+            again = svc.rank(queries[:8])
+            check(all(r.status == "hit" for r in again)
+                  and mesh.segment_sums == 0,
+                  f"{label}: the repeat batch was not served from cache")
+            batch = svc.pipeline.assemble(PipelineJob(
+                queries=[svc.validate_roots(q) for q in queries[:8]],
+                refresh=True)).batch
+            n_pad, v = batch.h0.shape
+            wire = be.measure_wire_bytes(n_pad, v, batch.src, batch.dst,
+                                         batch.w)
+            ana = be.collective_bytes_per_sweep(n_pad, v)
+            reads = reads_per_sweep(be, batch)
+            print(f"[{label}] devices {[str(d) for d in mesh.devices]}; 3 "
+                  f"batches in {wall * 1e3:.1f} ms; sweeps per batch "
+                  f"{per_batch} (+1 certificate each); plan ms "
+                  f"{plan_ms}; sweep ms {sweep_ms}; matches the CPU dense "
+                  f"service: max L1 {worst:.2e}, nodes/iters/status equal; "
+                  f"repeat batch 8/8 hits", flush=True)
+            print(f"[{label}] per sweep: {mesh.size * 2} segment sums, "
+                  f"{reads:.1f} host reads in the sweep body (+1 for the "
+                  f"loop's stop test); first union n_pad {n_pad} V {v}: "
+                  f"wire bytes one sweep {wire:.1f} (mesh counters) vs "
+                  f"collective_bytes_per_sweep_cols {ana}; the run's "
+                  f"collective output bytes {run_bytes} over {sweeps} "
+                  f"sweeps", flush=True)
+            # a profiled rerun on a fresh service: device time split
+            fresh = sharded(mode, s)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fresh.rank(queries)
+                torch.cuda.synchronize()
+                wall_prof = (time.perf_counter() - t0) * 1e3
+            split = device_split(prof)
+            if split["all"]:
+                coll = sum(split.get(k, 0.0) for k in
+                           ("dist.psum", "dist.all_gather", "dist.ppermute"))
+                print(f"[{label} profile] {card}: device busy "
+                      f"{split['all']:.2f} ms of {wall_prof:.1f} ms wall "
+                      f"(idle share {1 - split['all'] / wall_prof:.3f}); "
+                      f"segment sums {split.get('dist.segment_sum', 0.0):.3f}"
+                      f" ms, collectives {coll:.3f} ms ("
+                      + ", ".join(f"{k[5:]} {x:.3f}" for k, x in
+                                  sorted(split.items())
+                                  if k.startswith("dist."))
+                      + f"); every key's self device time gives "
+                      f"{split['key_sum']:.2f} ms", flush=True)
+            else:
+                print(f"[{label} profile] the profiler reported no device "
+                      "time: device split not measured", flush=True)
+
+    # one shard's segment sum with the zero-weight padding in its layout
+    # (as the reference's segment_sum adds it) and without (the port's
+    # layout): on the card segment_reduce adds a segment serially, and the
+    # padding lands in one segment (the dead pad row)
+    from repro_torch.runtime import from_host
+    from repro_torch.sparse.spmv import segment_layout, segment_sum
+    sh = dist.build_edge_shards_cols(batch.src, batch.dst, batch.w, n_pad, 1,
+                                     "replicated")
+    src, dst = (from_host(sh[k][0]).cuda() for k in ("src", "dst"))
+    w = from_host(sh["w"][0]).cuda().double()
+    x = torch.rand((n_pad, v), dtype=torch.float64, device="cuda")
+    lays = {"with padding": segment_layout(src, dst, n_pad, w),
+            "without": dist.live_layout(src, dst, n_pad, w)}
+    outs, t = {}, {}
+    for name, lay in lays.items():
+        outs[name] = segment_sum(x, lay)
+        t[name] = ms_of(lambda: segment_sum(x, lay), 20)
+    check(torch.equal(outs["with padding"], outs["without"]),
+          "segment sum: leaving the zero-weight padding out changed a bit")
+    pad = int((w == 0).sum())
+    print(f"[sharded segment sum] first union, one shard of {sh['per']} "
+          f"edges ({pad} of them zero-weight padding, all at the dead pad "
+          f"row), V {v} f64: {t['with padding']:.4f} ms a call with the "
+          f"padding in the layout, {t['without']:.4f} ms without (CUDA "
+          f"events, launch and host reads included); the sums bit-equal",
+          flush=True)
+
+    # a weight-only delta on a 2-shard service: patched, never replanned
+    for mode in ("replicated", "dual_blocked"):
+        label = f"sharded {mode} S=2 delta"
+        svc = sharded(mode, 2)
+        cpu = RankService(g, RankServiceConfig(device="cpu", backend="dense",
+                                               **base))
+        svc.rank(queries[:8])
+        cpu.rank(queries[:8])
+        fs = svc.extractor.extract(svc.validate_roots(queries[0]))
+        pick = np.random.default_rng(4).choice(fs.graph.n_edges, 20,
+                                               replace=False)
+        rw = [(int(fs.nodes[fs.graph.src[i]]), int(fs.nodes[fs.graph.dst[i]]),
+               2.0) for i in pick]
+        svc.apply_edge_delta(reweights=rw)
+        cpu.apply_edge_delta(reweights=rw)
+        got = svc.rank(queries[:8])
+        snap = svc.telemetry_snapshot()
+        check(snap["service.delta.patched"]["sharded"] >= 1
+              and snap["service.delta.replanned"] == 0,
+              f"{label}: patched {snap['service.delta.patched']}, "
+              f"replanned {snap['service.delta.replanned']}")
+        worst = held(got, cpu.rank(queries[:8]), label)
+        print(f"[{label}] 20 union edges reweighted: patched "
+              f"{snap['service.delta.patched']['sharded']}, replanned 0; "
+              f"plan ms {stage_ms(svc, 'plan')}; matches the CPU dense "
+              f"service given the same delta: max L1 {worst:.2e}",
+              flush=True)
+
+    # a sharded plan spilled and restored
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        a = sharded("dual_blocked", 2, spill_dir=str(tmp))
+        first = a.rank(queries)
+        a.flush_spill()
+        b = sharded("dual_blocked", 2, spill_dir=str(tmp))
+        b.clear_result_cache()
+        again = b.rank(queries)
+        check(b.stats["plan_restored"] == 3 and b.stats["plan_misses"] == 0,
+              f"sharded spill: restored {b.stats['plan_restored']} plans, "
+              f"built {b.stats['plan_misses']}")
+        worst = held(again, want, "sharded spill")
+        for r, f in zip(again, first):
+            check(r.iters == f.iters and np.array_equal(r.authority,
+                                                        f.authority),
+                  "sharded spill: a restored plan's result differs")
+        print(f"[sharded spill] dual_blocked S=2: {a.stats['plan_spilled']} "
+              f"plans spilled, {b.stats['plan_restored']} restored, 0 built; "
+              f"plan ms restored {stage_ms(b, 'plan')} vs built "
+              f"{stage_ms(a, 'plan')}; results equal to the first "
+              f"service's bit for bit, max L1 to the CPU dense {worst:.2e}",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the whole graph on a (4, 2) mesh of logical shards
+    ref = accel_hits(g, tol=1e-12, device="cuda")
+    ca, ch = accel_weights(g.indeg(), g.outdeg())
+    mesh = dist.make_mesh((4, 2), ("data", "model"), device="cuda")
+    for mode in ("replicated", "dual_blocked", "dual_blocked_compact"):
+        shards = dist.build_edge_shards(g, 8, mode)
+        sweep, h, args = dist.make_dist_hits_sweep(
+            mesh, shards, g.n_nodes, ca=ca, ch=ch, dtype="float64")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(60):
+            h, _a = sweep(h, *args)
+        torch.cuda.synchronize()
+        t_sweep = (time.perf_counter() - t0) * 1e3 / 60
+        if mode == "replicated":
+            hf = h[0].cpu().numpy()
+        else:
+            n_keep = shards["n_hub"] if mode.endswith("compact") \
+                else g.n_nodes
+            hf = dist.blocked_to_full(h, n_keep)
+            if mode.endswith("compact"):
+                full = np.zeros(g.n_nodes)
+                full[shards["nd_ids"]] = hf
+                hf = full
+        err = float(np.abs(hf - ref.v).max())
+        check(np.isfinite(hf).all() and err < 1e-12,
+              f"dist sweep {mode}: max abs {err:.3e} to accel_hits")
+        print(f"[dist whole graph] britannica {mode}, (4, 2) mesh on "
+              f"{sorted({str(d) for d in mesh.devices})}: 60 f64 sweeps, "
+              f"{t_sweep:.3f} ms a sweep (host clock); max abs "
+              f"{err:.2e} to the card's accel_hits ({ref.iters} sweeps)",
+              flush=True)
+    print(f"[sharded] phase 3f: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 if __name__ == "__main__":

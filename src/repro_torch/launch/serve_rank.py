@@ -27,6 +27,9 @@ graph mutation.
       --dataset synthetic --n-nodes 3000 --n-edges 24000 --frontend queued \
       --arrival-qps 100 --deadline-ms 5 --spill-dir /tmp/rank_spill \
       --stats-port 0
+  PYTHONPATH=src python -m repro_torch.launch.serve_rank --device cpu \
+      --dataset synthetic --n-nodes 3000 --n-edges 24000 --backend sharded \
+      --shard-mode dual_blocked --shard-devices 4
 """
 from __future__ import annotations
 
@@ -113,13 +116,14 @@ def main():
     from ..configs.hits_webgraph import CONFIG
     ap.add_argument("--backend", default=CONFIG.serve_backend,
                     choices=["dense", "sharded", "bsr", "auto"],
-                    help="sweep backend (see repro_torch.serve.backends;"
-                         " sharded is not ported yet)")
+                    help="sweep backend (see repro_torch.serve.backends)")
     ap.add_argument("--shard-mode", default=CONFIG.serve_shard_mode,
                     choices=["replicated", "dual_blocked"],
                     help="sharded backend edge-shard strategy")
     ap.add_argument("--shard-devices", type=int, default=None,
-                    help="sharded backend device count (default: all)")
+                    help="sharded backend shard count (default: every "
+                         "visible device; more shards than devices share "
+                         "them round-robin)")
     ap.add_argument("--plan-cache", type=int,
                     default=CONFIG.serve_plan_cache,
                     help="SweepPlan LRU entries (structural layouts cached "
@@ -199,12 +203,6 @@ def main():
 
     from ..graph import WebGraphSpec, generate_webgraph, paper_dataset
     from ..serve import RankService, RankServiceConfig
-    from ..serve.rank_service import NEXT_SLICE
-
-    if args.backend == "sharded":
-        raise NotImplementedError(
-            f"--backend sharded: the sharded backend is not ported yet "
-            f"({NEXT_SLICE})")
 
     if args.dataset == "synthetic":
         g = generate_webgraph(WebGraphSpec(args.n_nodes, args.n_edges,
@@ -217,6 +215,8 @@ def main():
     def cfg(spill=args.spill_dir):
         return RankServiceConfig(v_max=args.v, tol=args.tol,
                                  backend=args.backend,
+                                 shard_mode=args.shard_mode,
+                                 shard_devices=args.shard_devices,
                                  device=args.device,
                                  plan_cache_size=args.plan_cache,
                                  bsr_fused=not args.bsr_host_loop,

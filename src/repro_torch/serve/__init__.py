@@ -1,8 +1,9 @@
 from .backends import (BACKENDS, BsrSweepBackend, DenseSweepBackend,
-                       SweepBackend, SweepBatch, make_backend, select_backend)
+                       ShardedSweepBackend, SweepBackend, SweepBatch,
+                       make_backend, select_backend, shared_mesh)
 from .pipeline import PipelineJob, ServePipeline
-from .plans import (BsrPlan, DensePlan, PlanCache, SweepPlan, structure_key,
-                    topology_key)
+from .plans import (BsrPlan, DensePlan, PlanCache, ShardedPlan, SweepPlan,
+                    structure_key, topology_key)
 from .queue import QueueTicket, RankQueue
 from .rank_service import QueryResult, RankService, RankServiceConfig
 from .spill import CacheSpill, PlanSpill
@@ -14,8 +15,9 @@ __all__ = [
     "RankQueue", "QueueTicket", "CacheSpill", "PlanSpill",
     "ServePipeline", "PipelineJob",
     "BACKENDS", "SweepBackend", "SweepBatch", "DenseSweepBackend",
-    "BsrSweepBackend", "make_backend", "select_backend",
-    "SweepPlan", "DensePlan", "BsrPlan", "PlanCache", "structure_key",
-    "topology_key", "MetricsRegistry", "StatsServer", "Counter", "Gauge",
+    "BsrSweepBackend", "ShardedSweepBackend", "make_backend",
+    "select_backend", "shared_mesh",
+    "SweepPlan", "DensePlan", "ShardedPlan", "BsrPlan", "PlanCache",
+    "structure_key", "topology_key", "MetricsRegistry", "StatsServer", "Counter", "Gauge",
     "Histogram",
 ]

@@ -8,13 +8,16 @@ runs the masked multi-column accelerated-HITS convergence loop:
 
 * ``dense`` — ``core.hits.hits_sweep_cols`` on the deterministic segmented
               SpMV (``sparse.spmv``), a per-sweep torch loop.
+* ``sharded`` — the same column sweep over a mesh of devices
+              (``sparse.dist.make_dist_hits_sweep_cols``, one process over
+              a tuple of devices); edge shards follow the dist ladder
+              (``replicated``: 2 psums/sweep, ``dual_blocked``: 2
+              all-gathers/sweep).
 * ``bsr``   — the hand-written BSR kernels (``kernels.bsr_spmm``) after
               the blocking permutation; the loop runs on the device by
               default (``kernels.bsr_converge_cols``, one CUDA graph per
               batch), ``fused=False``
               keeps the host-driven loop as its parity reference.
-
-The mesh-``sharded`` backend is not ported yet (ROADMAP, Queue 1 item 8).
 
 Each backend splits its work along the plan/sweep seam (``serve.plans``):
 ``plan(batch)`` builds the structure-only artifact on the backend's
@@ -37,11 +40,12 @@ from ..graph.structure import Graph
 from ..kernels.ops import DeviceBSR, bsr_converge, bsr_matvec, bsr_revalue
 from ..runtime import (dtype_name, from_host, host_array, resolve_device,
                        tol_in, torch_dtype)
+from ..sparse import dist
 from ..sparse.spmv import normalize_l1
-from .plans import BsrPlan, DensePlan, SweepPlan, structure_key
+from .plans import (BsrPlan, DensePlan, ShardedPlan, SweepPlan,
+                    structure_key)
 
 BACKENDS = ("dense", "sharded", "bsr")
-SHARDED_TODO = "ROADMAP.md Queue 1 item 8 (multi-device)"
 
 # auto heuristic: sharding pays once the union subgraph's per-sweep edge
 # work dwarfs the collective latency; BSR pays in the dense-block regime
@@ -127,13 +131,16 @@ class SweepBatch:
                 else bulk_stop_tol(self.bulk_dtype, self.tol))
 
 
-def _record_ready(dev: torch.device):
-    """An event after everything enqueued so far on ``dev`` (None on CPU)."""
-    if dev.type != "cuda":
-        return None
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(dev))
-    return ev
+def _record_ready(*devices) -> tuple:
+    """One event per CUDA device after everything enqueued so far on it
+    (none on the CPU)."""
+    out = []
+    for dev in dict.fromkeys(devices):
+        if dev.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            out.append(ev)
+    return tuple(out)
 
 
 def _topk_rows(a, k: int):
@@ -198,8 +205,15 @@ class SweepBackend:
             raise ValueError(
                 f"plan {plan.backend!r}/n_pad={plan.n_pad} does not fit "
                 f"batch {self.name!r}/n_pad={batch.h0.shape[0]}")
-        if plan.ready is not None:  # built on another thread's stream
-            torch.cuda.current_stream(self.device).wait_event(plan.ready)
+        # built on another thread's stream: every device the sweep runs on
+        # waits for every device's copies
+        for dev in self._devices():
+            for ev in plan.ready:
+                torch.cuda.current_stream(dev).wait_event(ev)
+
+    def _devices(self) -> tuple:
+        """The distinct devices this backend's plans and sweeps live on."""
+        return (self.device,)
 
     def _tensors(self, b: SweepBatch):
         """The batch's (h0, ca, ch, mask) on the device at the sweep dtype."""
@@ -219,18 +233,24 @@ def _numpy(*ts):
 # ------------------------------------------------------------------- dense
 
 
-def _converge_dense(edges: EdgeList, h0, ca, ch, mask, tol: float,
-                    max_iter: int, rank_k: int = 0, stable_sweeps: int = 2,
-                    bulk_dtype=None, bulk_tol: float = 0.0):
-    """Convergence loop for V masked columns (the reference's
-    ``_converge_batch``): per-column L1 residual and optional rank
-    stability, the ladder's bulk phase first when ``bulk_dtype`` is set
+def _col_l1(h_new, h):
+    return (h_new - h).abs().sum(dim=0)
+
+
+def _converge(sweep, h0, tol: float, max_iter: int, v: int, device,
+              k_eff: int = 0, stable_sweeps: int = 2, sweep_lo=None,
+              bulk_dtype=None, bulk_tol: float = 0.0, delta=_col_l1,
+              rows=lambda x: x, cast=lambda h, dt: h.to(dt)):
+    """The host-driven convergence loop for V masked columns (the
+    reference's ``_converge_batch`` and ``_sharded_converge``): per-column
+    L1 residual ``delta(h_new, h)`` and optional rank stability over
+    ``rows(a)`` (the authority's (rows, V) tensor on ``device``), the
+    ladder's bulk phase (``sweep_lo`` at ``bulk_dtype``) first when set
     (``max_iter`` bounds the total, rank state resets at the switch), and
-    one extra full-precision sweep for the certificate."""
-    sweep = hits_sweep_cols(edges, ca, ch, mask)
-    k_eff = min(int(rank_k), h0.shape[0]) if rank_k else 0
-    v = h0.shape[1]
-    i32 = dict(dtype=torch.int32, device=h0.device)
+    one extra full-precision sweep for the certificate. ``h0`` is whatever
+    ``sweep`` iterates (a tensor, or a sharded vector that ``cast`` casts).
+    Returns (rows(h), normalized rows(a), conv, res)."""
+    i32 = dict(dtype=torch.int32, device=device)
 
     def loop(sweep_fn, h, k, stop_tol):
         conv = torch.full((v,), -1, **i32)
@@ -238,10 +258,10 @@ def _converge_dense(edges: EdgeList, h0, ca, ch, mask, tol: float,
         stab = torch.zeros(v, **i32)
         while k < max_iter and bool((conv < 0).any()):
             h_new, a = sweep_fn(h)
-            delta = (h_new - h).abs().sum(dim=0)
-            stop = delta.double() <= tol_in(stop_tol, delta.dtype)
+            dl = delta(h_new, h)
+            stop = dl.double() <= tol_in(stop_tol, dl.dtype)
             if k_eff:
-                top = _topk_rows(a, k_eff)
+                top = _topk_rows(rows(a), k_eff)
                 stab = torch.where((top == top_prev).all(dim=1), stab + 1, 0)
                 stop = stop | (stab >= stable_sweeps)
                 top_prev = top
@@ -251,16 +271,32 @@ def _converge_dense(edges: EdgeList, h0, ca, ch, mask, tol: float,
 
     k = 0
     if bulk_dtype is not None:
-        bd = torch_dtype(bulk_dtype)
-        sweep_lo = hits_sweep_cols(edges.astype(bd), ca.to(bd), ch.to(bd),
-                                   mask.to(bd))
-        h_lo, k, _ = loop(sweep_lo, h0.to(bd), k, bulk_tol)
-        h0 = h_lo.to(h0.dtype)
+        dt = (h0[0] if isinstance(h0, list) else h0).dtype
+        h_lo, k, _ = loop(sweep_lo, cast(h0, torch_dtype(bulk_dtype)), k,
+                          bulk_tol)
+        h0 = cast(h_lo, dt)
     h, k, conv = loop(sweep, h0, k, tol)
     conv = torch.where(conv < 0, k, conv)
     h2, a = sweep(h)
-    res = (h2 - h).abs().sum(dim=0)
-    return h, normalize_l1(a, axis=0), conv, res
+    res = delta(h2, h)
+    return rows(h), normalize_l1(rows(a), axis=0), conv, res
+
+
+def _converge_dense(edges: EdgeList, h0, ca, ch, mask, tol: float,
+                    max_iter: int, rank_k: int = 0, stable_sweeps: int = 2,
+                    bulk_dtype=None, bulk_tol: float = 0.0):
+    """``_converge`` over the single-device column sweep
+    (``core.hits.hits_sweep_cols``)."""
+    sweep_lo = None
+    if bulk_dtype is not None:
+        bd = torch_dtype(bulk_dtype)
+        sweep_lo = hits_sweep_cols(edges.astype(bd), ca.to(bd), ch.to(bd),
+                                   mask.to(bd))
+    return _converge(
+        hits_sweep_cols(edges, ca, ch, mask), h0, tol, max_iter, h0.shape[1],
+        h0.device, k_eff=min(int(rank_k), h0.shape[0]) if rank_k else 0,
+        stable_sweeps=stable_sweeps, sweep_lo=sweep_lo,
+        bulk_dtype=bulk_dtype, bulk_tol=bulk_tol)
 
 
 class DenseSweepBackend(SweepBackend):
@@ -322,6 +358,229 @@ class DenseSweepBackend(SweepBackend):
                               stable_sweeps=int(b.stable_sweeps),
                               bulk_dtype=b.bulk_dtype, bulk_tol=b.bulk_tol())
         return _numpy(*out)
+
+
+# ----------------------------------------------------------------- sharded
+
+# process-wide mesh per (device tuple, axes): meshes are pure structure, so
+# every backend instance (and every plan) over the same device tuple
+# shares ONE object
+_MESH_CACHE: Dict[tuple, dist.Mesh] = {}
+
+
+def shared_mesh(devices, axes) -> dist.Mesh:
+    devices = tuple(torch.device(d) for d in devices)
+    key = (tuple(str(d) for d in devices), tuple(axes))
+    mesh = _MESH_CACHE.get(key)
+    if mesh is None:
+        mesh = _MESH_CACHE[key] = dist.Mesh(devices, (len(devices),), axes)
+    return mesh
+
+
+def _sharded_converge(plan: ShardedPlan, h0, ca, ch, m, v: int, tol: float,
+                      max_iter: int, rank_k: int = 0, stable_sweeps: int = 2,
+                      bulk_dtype=None, bulk_tol: float = 0.0):
+    """``_converge`` over the mesh (the reference's ``_sharded_converge``).
+
+    The per-column L1 stop sums each shard's rows and adds the shards in
+    order (a psum); the rank-stability stop ranks ``a``'s node-major rows,
+    where blocked layouts' dead rows are zero and rank below every real
+    score (lowest index first); the bulk phase casts the edge weights and
+    the column arrays to the bulk dtype."""
+    mesh = plan.mesh
+    sweep_of = dist.make_dist_hits_sweep_cols(mesh, plan.mode, plan.n_pad)
+    blocked = plan.mode == "dual_blocked"
+
+    def bind(layouts, dt=None):
+        cas = (ca, ch, m) if dt is None else tuple(
+            _each(x, lambda t: t.to(dt)) for x in (ca, ch, m))
+        return lambda h: sweep_of(h, *cas, layouts)
+
+    def delta(h_new, h):
+        if not blocked:
+            return _col_l1(h_new[0], h[0])
+        return dist.psum(mesh, [_col_l1(x, y) for x, y in zip(h_new, h)])[0]
+
+    def rows(x):
+        return dist.all_gather(mesh, x)[0] if blocked else x[0]
+
+    sweep_lo = None
+    if bulk_dtype is not None:
+        bd = torch_dtype(bulk_dtype)
+        sweep_lo = bind(dist.cast_layouts(plan.layouts, bd), bd)
+    return _converge(
+        bind(plan.layouts), h0, tol, max_iter, v, mesh.devices[0],
+        k_eff=min(int(rank_k), plan.n_pad) if rank_k else 0,
+        stable_sweeps=stable_sweeps, sweep_lo=sweep_lo,
+        bulk_dtype=bulk_dtype, bulk_tol=bulk_tol, delta=delta, rows=rows,
+        cast=lambda h, dt: _each(h, lambda x: x.to(dt)))
+
+
+def _each(parts, fn):
+    """``fn`` of every part, computed once per distinct tensor (shards on
+    one device share their replicated values)."""
+    memo = {}
+    for x in parts:
+        if id(x) not in memo:
+            memo[id(x)] = fn(x)
+    return [memo[id(x)] for x in parts]
+
+
+class ShardedSweepBackend(SweepBackend):
+    """Mesh-sharded column sweep over the dist.py edge-sharding ladder.
+
+    One process drives ``n_devices`` shards (None: every visible device of
+    ``device``'s type — 1 on the CPU, ``torch.cuda.device_count()`` on
+    "cuda"), placed round-robin over those devices (``dist.make_mesh``):
+    more shards than devices run as logical shards that share one.
+    """
+
+    name = "sharded"
+
+    def __init__(self, mode: str = "dual_blocked",
+                 n_devices: Optional[int] = None, device="cuda"):
+        super().__init__(device)
+        if mode not in ("replicated", "dual_blocked"):
+            raise ValueError(f"unknown shard mode {mode!r}")
+        s = (len(dist.visible_devices(self.device)) if n_devices is None
+             else int(n_devices))
+        if s < 1:
+            raise ValueError(f"n_devices={s} must be >= 1")
+        self.mode = mode
+        self.n_shards = s
+        self.axes = ("data",)  # the reference's axis name: in plan keys
+        self.mesh = shared_mesh(dist.round_robin(s, self.device), self.axes)
+
+    def _devices(self) -> tuple:
+        return self.mesh.distinct_devices()
+
+    def collective_bytes_per_sweep(self, n_pad: int, v: int,
+                                   itemsize: int = 8) -> int:
+        """Analytic per-device wire bytes per sweep (the dist ladder)."""
+        return dist.collective_bytes_per_sweep_cols(self.mode, n_pad, v,
+                                                    self.n_shards, itemsize)
+
+    def plan_params(self) -> tuple:
+        return (self.mode, self.n_shards, self.axes)
+
+    def _plan(self, key: str, n_pad: int, per: int, nb: int,
+              eargs) -> ShardedPlan:
+        layouts = dist.edge_layouts_cols(self.mesh, self.mode, eargs, n_pad)
+        return ShardedPlan(key=key, backend=self.name, n_pad=n_pad,
+                           mesh=self.mesh, mode=self.mode,
+                           n_shards=self.n_shards, per=per, nb=nb,
+                           eargs=eargs, layouts=layouts,
+                           ready=_record_ready(*self._devices()))
+
+    def plan(self, b: SweepBatch, key: str = "") -> ShardedPlan:
+        """Host-side edge partition + the copies to the shards' devices +
+        each shard's segment layouts."""
+        n_pad = b.h0.shape[0]
+        shards = dist.build_edge_shards_cols(b.src, b.dst, b.w, n_pad,
+                                             self.n_shards, self.mode)
+        return self._plan(key or b.structure_key(), n_pad, shards["per"],
+                          int(shards.get("nb", 0)),
+                          dist.device_put_edge_args_cols(shards, b.dtype,
+                                                         self.mesh))
+
+    def plan_arrays(self, plan: ShardedPlan):
+        # the eargs ARE the layout: (S, per) arrays in calling-convention
+        # order, as the reference writes them; the mesh is process state
+        arrays = {f"earg{i}": np.stack([host_array(x) for x in arg])
+                  for i, arg in enumerate(plan.eargs)}
+        return arrays, {"n_pad": int(plan.n_pad), "mode": plan.mode,
+                        "n_shards": int(plan.n_shards),
+                        "per": int(plan.per), "nb": int(plan.nb),
+                        "n_eargs": len(plan.eargs)}
+
+    def plan_restore(self, key: str, arrays, meta) -> ShardedPlan:
+        """Rehydrate ``plan_arrays`` output — this backend's or the JAX
+        package's (the same arrays and meta)."""
+        if meta["mode"] != self.mode or int(meta["n_shards"]) != self.n_shards:
+            raise ValueError("spilled plan laid out for a different "
+                             f"shard config: {meta}")
+        eargs = tuple(
+            tuple(self.mesh.shard_rows(from_host(arrays[f"earg{i}"])))
+            for i in range(int(meta["n_eargs"])))
+        return self._plan(key, int(meta["n_pad"]), int(meta["per"]),
+                          int(meta["nb"]), eargs)
+
+    def patch(self, plan: ShardedPlan, b: SweepBatch,
+              key: str = "") -> Optional[ShardedPlan]:
+        """Weight-only update keeping the device endpoint planes.
+
+        The pow2 bucketing is a function of the kept edge endpoints alone
+        and a weight-only delta keeps the w != 0 mask, so the successor
+        batch repacks into identical endpoint planes: only the weight
+        planes ship, and the layouts are re-sorted on the devices from the
+        old endpoints. Returns None when the repacked buckets would not fit
+        the old layout (per/nb drift)."""
+        self._check(plan, b)
+        shards = dist.build_edge_shards_cols(b.src, b.dst, b.w, plan.n_pad,
+                                             self.n_shards, self.mode)
+        if shards["mode"] != plan.mode or int(shards["per"]) != plan.per \
+                or int(shards.get("nb", 0)) != plan.nb:
+            return None
+        dt = torch_dtype(b.dtype)
+        new = [tuple(self.mesh.shard_rows(from_host(part["w"]).to(dt)))
+               for part in ((shards,) if plan.mode == "replicated"
+                            else (shards["a"], shards["h"]))]
+        e = plan.eargs
+        if plan.mode == "replicated":
+            eargs = (e[0], e[1], new[0])
+        else:
+            eargs = (e[0], e[1], new[0], e[3], e[4], new[1])
+        return self._plan(key or b.structure_key(), plan.n_pad, plan.per,
+                          plan.nb, eargs)
+
+    def _vector_layout(self, plan: ShardedPlan, h0, ca, ch, m, dtype):
+        """Per-batch device layout of the (n_pad, V) vectors: ca/ch/m
+        replicated on every shard's device; h0 replicated (``replicated``)
+        or in (nb, V) blocks (``dual_blocked``, rows padded to nb*S >=
+        n_pad: non-power-of-two shard counts get dead extra rows with zero
+        weights, mask and h0, like the service's pad row)."""
+        dt = torch_dtype(dtype)
+        as_t = lambda x: torch.from_numpy(  # noqa: E731
+            np.ascontiguousarray(x)).to(dt)
+        if plan.mode == "dual_blocked":
+            n_rows, v = np.shape(h0)
+            rows = ((0, plan.nb * plan.n_shards - n_rows), (0, 0))
+            h0, ca, ch, m = (np.pad(np.asarray(x), rows)
+                             for x in (h0, ca, ch, m))
+            h = self.mesh.shard_rows(
+                as_t(h0).reshape(plan.n_shards, plan.nb, v))
+        else:
+            h = self.mesh.replicate(as_t(h0))
+        return (h,) + tuple(self.mesh.replicate(as_t(x)) for x in (ca, ch, m))
+
+    def sweep(self, plan: ShardedPlan, b: SweepBatch):
+        self._check(plan, b)
+        n_pad, v = b.h0.shape
+        h0, ca, ch, m = self._vector_layout(plan, b.h0, b.ca, b.ch, b.mask,
+                                            b.dtype)
+        h, a, conv, res = _sharded_converge(
+            plan, h0, ca, ch, m, v, b.tol, b.max_iter, rank_k=int(b.rank_k),
+            stable_sweeps=int(b.stable_sweeps), bulk_dtype=b.bulk_dtype,
+            bulk_tol=b.bulk_tol())
+        return _numpy(h[:n_pad], a[:n_pad], conv, res)
+
+    def measure_wire_bytes(self, n_pad: int, v: int, src, dst, w,
+                           dtype="float64") -> float:
+        """Per-device ring wire bytes of ONE sweep at these shapes, from
+        the mesh's collective counters (the reference reads the same sizes
+        from the compiled HLO)."""
+        zeros = np.zeros((n_pad, v))
+        plan = self.plan(SweepBatch(
+            h0=zeros, src=src, dst=dst, w=w, ca=zeros, ch=zeros, mask=zeros,
+            tol=0.0, max_iter=1, dtype=dtype))
+        h0, ca, ch, m = self._vector_layout(plan, zeros, zeros, zeros,
+                                            zeros, dtype)
+        sweep = dist.make_dist_hits_sweep_cols(self.mesh, self.mode, n_pad)
+        before = dict(self.mesh.collective_bytes)
+        sweep(h0, ca, ch, m, plan.layouts)
+        by_kind = {k: b - before.get(k, 0)
+                   for k, b in self.mesh.collective_bytes.items()}
+        return dist.wire_bytes_from_collectives(by_kind, self.n_shards)
 
 
 # --------------------------------------------------------------------- bsr
@@ -521,10 +780,11 @@ class BsrSweepBackend(SweepBackend):
 # ------------------------------------------------------- selection/factory
 
 
-def select_backend(n_union: int, e_union: int, n_devices: int = 1,
+def select_backend(n_union: int, e_union: int,
+                   n_devices: Optional[int] = None,
                    cuda: Optional[bool] = None) -> str:
     """The ``auto`` heuristic: pick a backend from subgraph density and
-    device count.
+    device count (None: the visible cards, or 1 without one).
 
     Multi-device hosts shard once the union subgraph carries enough edges
     to amortize per-sweep collectives; single-device dense-block subgraphs
@@ -534,6 +794,8 @@ def select_backend(n_union: int, e_union: int, n_devices: int = 1,
     """
     if cuda is None:
         cuda = torch.cuda.is_available()
+    if n_devices is None:
+        n_devices = torch.cuda.device_count() if cuda else 1
     if n_devices > 1 and e_union >= _SHARD_MIN_EDGES:
         return "sharded"
     if cuda and e_union >= _BSR_MIN_EDGES_PER_NODE * max(n_union, 1):
@@ -541,13 +803,14 @@ def select_backend(n_union: int, e_union: int, n_devices: int = 1,
     return "dense"
 
 
-def make_backend(kind: str, *, bsr_block: int = 128, bsr_fused: bool = True,
-                 device="cuda") -> SweepBackend:
+def make_backend(kind: str, *, shard_mode: str = "dual_blocked",
+                 shard_devices: Optional[int] = None, bsr_block: int = 128,
+                 bsr_fused: bool = True, device="cuda") -> SweepBackend:
     if kind == "dense":
         return DenseSweepBackend(device=device)
     if kind == "sharded":
-        raise NotImplementedError(
-            f"the sharded backend is not ported yet: {SHARDED_TODO}")
+        return ShardedSweepBackend(mode=shard_mode, n_devices=shard_devices,
+                                   device=device)
     if kind == "bsr":
         return BsrSweepBackend(bs=bsr_block, fused=bsr_fused, device=device)
     raise ValueError(f"unknown backend {kind!r} (want one of {BACKENDS})")

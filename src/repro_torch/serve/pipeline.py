@@ -41,8 +41,9 @@ The frontends are unified on this module: ``RankService.rank`` submits
 v_max-sized jobs from a list; ``RankQueue`` feeds jobs from its pending
 set, so the deadline wait itself — not just assembly — overlaps the
 previous batch's device sweep. On the card a plan built, patched or
-restored by the prepare thread carries a CUDA event (``SweepPlan.ready``)
-that the sweep waits on before reading it.
+restored by the prepare thread carries one CUDA event per card its
+tensors live on (``SweepPlan.ready``: a sharded plan spans every card of
+its mesh), and the sweep waits on each before reading it.
 """
 from __future__ import annotations
 

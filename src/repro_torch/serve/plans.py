@@ -2,8 +2,10 @@
 (port of ``repro.serve.plans``).
 
 * ``SweepPlan``     — the backend-specific structural artifact. ``dense``:
-                      device edge list with its segment layouts; ``bsr``:
-                      the blocking permutation and both DeviceBSR
+                      device edge list with its segment layouts;
+                      ``sharded``: pow2-bucketed edge shards on the mesh's
+                      devices, their segment layouts, and the shared mesh;
+                      ``bsr``: the blocking permutation and both DeviceBSR
                       structures.
 * ``structure_key`` — content hash of the padded edge structure; byte-equal
                       to the reference's for the same batch (the dtype is
@@ -17,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 from collections import OrderedDict
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -71,16 +73,17 @@ class SweepPlan:
 
     ``key`` is the ``structure_key`` the plan was built from (sweeps assert
     against the batch), ``backend`` the owning backend's name, ``n_pad``
-    the padded node count the layout was sized for. ``ready`` is a CUDA
-    event recorded after the plan's device tensors were enqueued (None on
-    the CPU): a plan built on the pipeline's prepare thread is complete
-    for the sweep that waits on it, whatever stream that sweep runs on.
+    the padded node count the layout was sized for. ``ready`` holds one
+    CUDA event per card the plan's tensors live on, recorded after they
+    were enqueued (empty on the CPU): a plan built on the pipeline's
+    prepare thread is complete for the sweep that waits on them, whatever
+    streams that sweep runs on.
     """
 
     key: str
     backend: str
     n_pad: int
-    ready: object = None
+    ready: Tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +91,28 @@ class DensePlan(SweepPlan):
     """Device-resident padded edge list with its segment layouts."""
 
     edges: object = None  # core.hits.EdgeList, w at the sweep dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedPlan(SweepPlan):
+    """Pow2-bucketed edge shards on the mesh + the (shared) mesh.
+
+    ``eargs`` is the sweep's edge arguments in the reference's
+    calling-convention order ((src, dst, w) for replicated; (asrc, adst,
+    aw, hsrc, hdst, hw) for dual_blocked), each a tuple of S per-shard
+    (per,) tensors on their shard's device. ``layouts`` holds, per shard,
+    the (authority, hub) ``SegmentLayout``s of those edges: stably sorted
+    by scatter index once, at plan time, for the deterministic segment
+    sum. ``mesh`` is the process-wide shared mesh for this device tuple.
+    """
+
+    mesh: object = None
+    mode: str = ""
+    n_shards: int = 0
+    per: int = 0         # padded per-shard edge bucket
+    nb: int = 0          # dual_blocked node-block size (0 for replicated)
+    eargs: Tuple = ()
+    layouts: Tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)

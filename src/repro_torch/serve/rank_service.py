@@ -14,9 +14,10 @@ Serves per-query accelerated-HITS rankings over focused subgraphs:
    hash; repeat queries are served from cache, and overlapping queries
    warm-start from the last converged scores.
 
-The convergence loop is pluggable (``serve.backends``: ``dense`` and the
-BSR kernels' ``bsr``), with the rank-stability early exit (``rank_k``)
-and the precision ladder (``sweep_dtype``) on both. Every batch runs
+The convergence loop is pluggable (``serve.backends``: ``dense``, the
+mesh-``sharded`` sweep and the BSR kernels' ``bsr``), with the
+rank-stability early exit (``rank_k``) and the precision ladder
+(``sweep_dtype``) on each. Every batch runs
 assemble → plan → sweep → publish through one ``ServePipeline``.
 
 Live edge deltas (``apply_edge_delta``) roll adds, removes and
@@ -33,8 +34,10 @@ and a plan cache miss tries the disk copy before rebuilding. The spill's
 format is the JAX package's, so either package restores the other's.
 
 The service runs on ``RankServiceConfig.device`` — "cuda" unless the
-caller passes "cpu". The sharded backend is not ported yet and raises
-``NotImplementedError`` (``NEXT_SLICE``).
+caller passes "cpu". The sharded backend runs ``shard_devices`` shards in
+this one process, placed round-robin over the visible devices of that
+type (``sparse.dist.make_mesh``): on the CPU, or on one card, they are
+logical shards of one device.
 """
 from __future__ import annotations
 
@@ -51,14 +54,10 @@ import torch
 from ..graph.structure import Graph
 from ..graph.subgraph import FocusedSubgraph, SubgraphExtractor
 from ..runtime import dtype_name, resolve_device, torch_dtype
-from .backends import (BACKENDS, SHARDED_TODO, SweepBackend, SweepBatch,
-                       dtype_floor, make_backend, resolve_sweep_dtype,
-                       select_backend)
+from .backends import (BACKENDS, SweepBackend, SweepBatch, dtype_floor,
+                       make_backend, resolve_sweep_dtype, select_backend)
 from .delta import EdgeDelta, apply_to_graph, lookup_weights
 from .plans import PlanCache, SweepPlan, topology_key
-
-# what the port does not carry yet: the sharded backend
-NEXT_SLICE = SHARDED_TODO
 
 
 @dataclasses.dataclass
@@ -82,7 +81,11 @@ class RankServiceConfig:
     # keeps the single-phase loop.
     sweep_dtype: str = ""
     polish_tol: Optional[float] = None
-    backend: str = "dense"     # dense | bsr | auto (sharded: not ported)
+    backend: str = "dense"     # dense | sharded | bsr | auto
+    shard_mode: str = "dual_blocked"   # sharded: replicated | dual_blocked
+    # sharded: shard count (None: every visible device of the service's
+    # type); shards beyond the device count share devices round-robin
+    shard_devices: Optional[int] = None
     bsr_block: int = 128       # bsr: block size
     bsr_fused: bool = True     # bsr: on-device convergence loop
     plan_cache_size: int = 64  # LRU of structural plans; <= 0 disables
@@ -286,11 +289,14 @@ class RankService:
         instance per kind."""
         kind = self.cfg.backend
         if kind == "auto":
-            kind = select_backend(n_union, e_union, n_devices=1,
+            kind = select_backend(n_union, e_union,
+                                  n_devices=self.cfg.shard_devices,
                                   cuda=self.device.type == "cuda")
         be = self._backends.get(kind)
         if be is None:
-            be = make_backend(kind, bsr_block=self.cfg.bsr_block,
+            be = make_backend(kind, shard_mode=self.cfg.shard_mode,
+                              shard_devices=self.cfg.shard_devices,
+                              bsr_block=self.cfg.bsr_block,
                               bsr_fused=self.cfg.bsr_fused,
                               device=self.device)
             self._backends[kind] = be

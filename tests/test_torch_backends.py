@@ -139,14 +139,19 @@ def reference_dense(batches):
 
 @pytest.mark.parametrize("kind,kw", [
     ("dense", {}), ("bsr", {"fused": True}), ("bsr", {"fused": False}),
-    ("bsr16", {"fused": True})])
+    ("bsr16", {"fused": True}),
+    ("sharded", {"mode": "replicated", "n_devices": 3}),
+    ("sharded", {"mode": "dual_blocked", "n_devices": 5})])
 def test_port_backends_match_reference_dense(batches, reference_dense, kind,
                                              kw):
-    """dense, bsr (device loop and host loop) and bsr at bs=16: h and a
-    within 1e-10 L1 and conv equal to the reference's dense backend, with
-    rank_k 0 and 5. Results come back as numpy, certificates included."""
+    """dense, bsr (device loop and host loop), bsr at bs=16 and sharded
+    (3 and 5 logical shards: dead blocked rows): h and a within 1e-10 L1
+    and conv equal to the reference's dense backend, with rank_k 0 and 5.
+    Results come back as numpy, certificates included."""
     if kind == "dense":
         be = pb.DenseSweepBackend(device="cpu")
+    elif kind == "sharded":
+        be = pb.ShardedSweepBackend(device="cpu", **kw)
     else:
         be = pb.BsrSweepBackend(bs=16 if kind == "bsr16" else 32,
                                 device="cpu", **kw)
@@ -189,6 +194,26 @@ def test_reference_plan_restores_into_the_port(batches):
                                                              meta)
 
 
+@pytest.mark.parametrize("mode", ["replicated", "dual_blocked"])
+def test_reference_sharded_plan_restores_into_the_port(batches, mode):
+    """The JAX package's sharded plan (one device here), persisted as its
+    ``plan_arrays``, restores into the port and sweeps to the reference's
+    results; the port's own plan persists to the same arrays and meta."""
+    b = batches[1]
+    be_r = rb.ShardedSweepBackend(mode=mode, n_devices=1)
+    plan_r = be_r.plan(b)
+    arrays, meta = be_r.plan_arrays(plan_r)
+    be_p = pb.ShardedSweepBackend(mode=mode, n_devices=1, device="cpu")
+    p = port_batch(b)
+    agree(be_p.sweep(be_p.plan_restore("k", arrays, meta), p),
+          be_r.sweep(plan_r, b))
+    own_arrays, own_meta = be_p.plan_arrays(be_p.plan(p))
+    assert own_meta == meta and own_arrays.keys() == arrays.keys()
+    for k, x in arrays.items():
+        assert np.array_equal(own_arrays[k], x), k
+        assert own_arrays[k].dtype == x.dtype, k
+
+
 def test_dense_plan_roundtrip(batches):
     be = pb.DenseSweepBackend(device="cpu")
     p = port_batch(batches[0])
@@ -206,9 +231,18 @@ def test_selection_and_factory():
     assert pb.select_backend(100, 900, cuda=False) == "dense"
     assert pb.select_backend(100, 500, cuda=True) == "dense"
     assert pb.select_backend(100, 9000, n_devices=4) == "sharded"
+    assert pb.select_backend(100, 9000, n_devices=None, cuda=False) == \
+        "dense"  # one visible device on the host
     assert isinstance(pb.make_backend("bsr", device="cpu"), pb.BsrSweepBackend)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pb.make_backend("sharded", device="cpu")
+    be = pb.make_backend("sharded", shard_mode="replicated", shard_devices=3,
+                         device="cpu")
+    assert isinstance(be, pb.ShardedSweepBackend)
+    assert (be.mode, be.n_shards, be.mesh.size) == ("replicated", 3, 3)
+    assert be.plan_params() == ("replicated", 3, ("data",))
+    assert pb.make_backend("sharded", device="cpu").n_shards == 1
+    for bad in (dict(shard_mode="nope"), dict(shard_devices=0)):
+        with pytest.raises(ValueError):
+            pb.make_backend("sharded", device="cpu", **bad)
     with pytest.raises(ValueError):
         pb.make_backend("nope", device="cpu")
 

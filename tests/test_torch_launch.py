@@ -256,16 +256,38 @@ def test_helpers_match_reference(tmp_path):
     assert out[0] == out[1]
 
 
-def test_sharded_backend_and_missing_card_raise(monkeypatch):
-    """``--backend sharded`` names the roadmap item that ports it; without
-    ``--device cpu`` the launcher wants the card and raises without one."""
+def test_sharded_backend_and_missing_card_raise(tmp_path, monkeypatch):
+    """``--backend sharded --shard-devices 2 --device cpu`` serves what the
+    reference's launcher serves with the same flags (its mesh over 2
+    forced host devices, the port's 2 shards on the host): equal graph,
+    cache, plan and iterated-queries lines and the same sample top-k.
+    Without ``--device cpu`` the launcher wants the card and raises
+    without one."""
+    args = GRAPH + ["--requests", "40", "--v", "4", "--backend", "sharded",
+                    "--shard-devices", "2"]
+    outs = {}
+    for name, module in (("ref", "repro.launch.serve_rank"),
+                         ("port", "repro_torch.launch.serve_rank")):
+        extra = ["--device", "cpu"] if name == "port" else []
+        r = subprocess.run(
+            [sys.executable, "-m", module, *args, *extra],
+            capture_output=True, text=True, cwd=tmp_path, timeout=WAIT,
+            env=dict(env(), XLA_FLAGS="--xla_force_host_platform_device_"
+                                      "count=2"))
+        assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-3000:])
+        outs[name] = r.stdout
+    r, p = outs["ref"], outs["port"]
+    for prefix in ("graph:", "cache:", "plans:", "iterated queries:"):
+        assert line(p, prefix) == line(r, prefix), prefix
+    rr, rs, rk = topk(r)
+    pr, ps, pk = topk(p)
+    assert (pr, ps) == (rr, rs)
+    assert [n for n, _ in pk] == [n for n, _ in rk]
+    assert max(abs(a - b) for (_, a), (_, b) in zip(pk, rk)) <= 1e-9
     small = ["serve_rank", "--dataset", "synthetic", "--n-nodes", "200",
              "--n-edges", "1000", "--requests", "4"]
-    monkeypatch.setattr(sys, "argv", small + ["--backend", "sharded",
-                                              "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        plaunch.main()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(sys, "argv", small)
-    with pytest.raises(RuntimeError, match="cuda"):
-        plaunch.main()
+    for extra in ([], ["--backend", "sharded"]):
+        monkeypatch.setattr(sys, "argv", small + extra)
+        with pytest.raises(RuntimeError, match="cuda"):
+            plaunch.main()

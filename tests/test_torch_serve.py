@@ -225,18 +225,26 @@ def test_validation_and_tol_clamp_match_reference(g):
 
 
 def test_unported_features_raise(g, monkeypatch):
-    """The one deferred feature, the sharded backend, says so instead of
-    doing nothing; the service runs on the card unless the caller asks for
-    the CPU. (Live edge deltas, the queue and the spill are ported:
-    ``tests/test_torch_delta.py``, ``test_torch_queue.py``,
-    ``test_torch_spill.py``.)"""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        RankService(g, RankServiceConfig(device="cpu", backend="sharded")
-                    ).rank([[1, 2]])
+    """The sharded backend, the last of the reference's backends to be
+    ported, serves on the CPU (2 logical shards, both modes) what the
+    dense service serves; the service runs on the card unless the caller
+    asks for the CPU, the sharded one too. (Per-(mode, S) parity with the
+    reference's sharded service: ``tests/test_torch_sharded.py``.)"""
+    qs, _ = queries()
+    dense = RankService(g, RankServiceConfig(device="cpu", v_max=8)).rank(qs)
+    for mode in ("replicated", "dual_blocked"):
+        svc = RankService(g, RankServiceConfig(
+            device="cpu", v_max=8, backend="sharded", shard_mode=mode,
+            shard_devices=2))
+        for r, o in zip(svc.rank(qs), dense):
+            assert r.status == o.status and r.iters == o.iters
+            assert np.abs(r.authority - o.authority).sum() <= 1e-10
+        assert svc.stats["backend_batches"] == {"sharded": 1}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert RankServiceConfig().device == "cuda"
-    with pytest.raises(RuntimeError, match="cuda"):
-        RankService(g)
+    for kw in ({}, {"backend": "sharded"}):
+        with pytest.raises(RuntimeError, match="cuda"):
+            RankService(g, RankServiceConfig(**kw))
 
 
 if __name__ == "__main__":
