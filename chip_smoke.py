@@ -79,6 +79,18 @@ Phases (any failure exits non-zero and prints no result line):
    ``RankingEngine`` on the card against the CPU, with and without
    stragglers, and ``python -m repro_torch.launch.rank`` (britannica,
    back-button, a checkpoint every 2 sweeps), then ``--resume``;
+3f. the sharded backend (``sparse/dist.py``): both modes at S 1, 2, 4
+   logical shards, every query held to a CPU dense service, host reads
+   and wire bytes per sweep, a delta, a spill, the whole graph on a (4,
+   2) mesh (``sharded_phase``);
+3g. the example ports and the recsys family (``recsys_phase``): the five
+   ``examples/*_torch.py`` on the card held to the JAX package's lines
+   (``EXAMPLE_LINES``); each recsys architecture at its published widths
+   (rows cut, ``RECSYS_ROWS_CUT``) against the host CPU; dlrm-rm2,
+   dcn-v2 and bst trained 20 steps through ``launch.train`` at full
+   config and batch 65,536 (bst checkpointed and resumed), dlrm-rm2's
+   step split, the two-tower trained in process; retrieval at the full
+   two-tower config over 1M candidates with the accelerated-HITS prior;
 4. a ``{"kernels": [...]}`` line (K1's entry carries the whole-graph
    path's numbers under ``hits_sweep_bsr``), then the contract's last line.
 
@@ -130,6 +142,126 @@ TABLE7_ITERS = {
 }
 # datasets whose card vectors are also held to the port on the host CPU
 TABLE7_ON_CPU = ("britannica", "wikipedia", "jobs")
+# The JAX package's deterministic lines of the ranking examples, made on
+# the CPU with
+#   for e in quickstart webgraph_ranking_e2e query_ranking_service \
+#            async_ranking_clients retrieval_with_hits; do
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python examples/$e.py; done
+EXAMPLE_LINES = {
+    "quickstart": {
+        "crawl": "synthetic 'wikipedia' crawl: 3129 pages, 7529 links, "
+                 "96% dangling",
+        "iters": [13, 9, 6, 159, 17, 104],
+        "agreement": "agreement with QI-HITS: cosine=0.951 spearman=0.992",
+        "bb": "L* = L + M: 14802 links, 41% dangling",
+        "top5": [1565, 308, 585, 2312, 683]},
+    "webgraph_ranking_e2e": {
+        "graph": "graph: N=33816 E=350980 dangling=30.4%",
+        "engine": (23, 47), "refine": (343, 345),
+        "spearman": "spearman=1.0000"},
+    "query_ranking_service": {
+        "graph": "graph: N=4220 E=86677 dangling=85.0%",
+        "cold": [(16, 27, [2056, 914, 4188]), (8, 61, [400, 314, 201]),
+                 (8, 96, [400, 1261, 314]), (8, 80, [201, 400, 314])],
+        "top3": [[0.1277597613671264, 0.11321241229920358,
+                  0.10794777069036801],
+                 [0.04440675223383055, 0.04440617920815661,
+                  0.04409223717109805],
+                 [0.03225171448235673, 0.03225171448235673,
+                  0.03225159307198242],
+                 [0.04329123821412148, 0.04329123821412148,
+                  0.04329105227831447]],
+        "warm": [(1, 16), (1, 8), (1, 8), (1, 8)]},
+    "async_ranking_clients": {
+        "graph": "graph: N=4000 E=24782", "restored": 21},
+    "retrieval_with_hits": {
+        "graph": "interaction graph: 2000 users, 3000 items, 26547 "
+                 "interactions",
+        "hits": "accelerated HITS: 10 iters; top item authority=0.06389"},
+}
+
+
+def example_problems(name, out):
+    """What in an example port's output (``examples/<name>_torch.py``)
+    departs from the JAX package's lines (``EXAMPLE_LINES``): an empty
+    list when nothing does. Timings and paths are not compared; the
+    query service's scores within 1e-12 and its oracle L1 within 1e-10;
+    the async clients' counters (timing-dependent) must account for all
+    48 tickets."""
+    import ast
+    import re
+    want = EXAMPLE_LINES[name]
+    lines = out.splitlines()
+    bad = []
+
+    def has(text):
+        if not any(x.strip() == text for x in lines):
+            bad.append(f"missing line {text!r}")
+
+    def grab(pattern, conv=int):
+        m = re.findall(pattern, out)
+        if not m:
+            bad.append(f"no match for {pattern!r}")
+        return [tuple(map(conv, x)) if isinstance(x, tuple) else conv(x)
+                for x in m]
+
+    if name == "quickstart":
+        for k in ("crawl", "agreement", "bb"):
+            has(want[k])
+        iters = grab(r"(\d+) iterations")
+        if iters != want["iters"]:
+            bad.append(f"iters {iters}")
+        if grab(r"page\s+(\d+)\s+authority") != want["top5"]:
+            bad.append("top-5 pages differ")
+    elif name == "webgraph_ranking_e2e":
+        has(want["graph"])
+        if grab(r"accelerated HITS: (\d+) iters.*stale_events=(\d+)") \
+                != [want["engine"]]:
+            bad.append("engine iters/stale events differ")
+        if grab(r"refinement: (\d+) warm-start iters vs (\d+) from") \
+                != [want["refine"]]:
+            bad.append("QI-HITS refinement iters differ")
+        if want["spearman"] not in out:
+            bad.append("spearman differs")
+    elif name == "query_ranking_service":
+        has(want["graph"])
+        cold = re.findall(r"\[(\w+), (\d+) sweeps, (\d+) focused pages\] "
+                          r"top-3 (\[.*\])", out)
+        got = [(int(i), int(n), [a for a, _ in ast.literal_eval(t)])
+               for st, i, n, t in cold]
+        if got != want["cold"] or any(c[0] != "cold" for c in cold):
+            bad.append(f"cold burst {got}")
+        for c, w in zip(cold, want["top3"]):
+            s = [b for _, b in ast.literal_eval(c[3])]
+            if max(abs(x - y) for x, y in zip(s, w)) > 1e-12:
+                bad.append(f"top-3 scores {s}")
+        if "4/4 cache hits" not in out or "identical scores: True" not in out:
+            bad.append("repeat burst not 4/4 identical hits")
+        w = re.findall(r"warm refresh sweeps vs cold: (\[.*\])", out)
+        if not w or ast.literal_eval(w[0]) != want["warm"]:
+            bad.append(f"warm refresh {w}")
+        l1 = grab(r"oracle: L1=(\S+)", float)
+        if not l1 or not l1[0] <= 1e-10:
+            bad.append(f"oracle L1 {l1}")
+    elif name == "async_ranking_clients":
+        has(want["graph"])
+        n = grab(r"(\d+) queries from (\d+) concurrent")
+        co = grab(r"(\d+) coalesced in flight")
+        c = grab(r"cache: (\d+) hits / (\d+) warm / (\d+) cold")
+        if n != [(48, 4)] or not co or not c or sum(c[0]) + co[0] != 48:
+            bad.append(f"tickets {n}, coalesced {co}, counters {c}")
+        if grab(r"restored (\d+) spilled") != [want["restored"]] or \
+                "['hit', 'hit', 'hit', 'hit'] (4 served" not in out:
+            bad.append("restart did not serve the repeats from the spill")
+    elif name == "retrieval_with_hits":
+        has(want["graph"])
+        has(want["hits"])
+        loss = grab(r"two-tower trained: loss=(\S+)", float)
+        m = grab(r"base=(\S+) blended=(\S+)", float)
+        if not loss or not np.isfinite(loss[0]) or not m or \
+                not m[0][1] > m[0][0]:
+            bad.append(f"loss {loss}, mean authority {m}")
+    return bad
 
 
 def fail(msg):
@@ -866,6 +998,9 @@ def main():
 
     # ------------------------------ 3f. the sharded backend (sparse.dist)
     sharded_phase(g, queries, card)
+
+    # ------------------- 3g. the example ports and the recsys family
+    recsys_phase()
 
     # ---------------------------------------------------- 4. result lines
     kernels = [
@@ -1859,6 +1994,404 @@ def sharded_phase(g, queries, card):
               f"{err:.2e} to the card's accel_hits ({ref.iters} sweeps)",
               flush=True)
     print(f"[sharded] phase 3f: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+RECSYS_ROWS_CUT = {
+    "dlrm-rm2": dict(vocab_per_field=1000),
+    "dcn-v2": dict(vocab_per_field=1000),
+    "bst": dict(vocab=100_000),
+    "two-tower-retrieval": dict(n_users=10_000, n_items=100_000),
+}
+
+
+def recsys_vs_host(arch, kw, dev, b_cmp=512):
+    """Phase 3g (b) for one architecture: its full ``CONFIG`` with the
+    rows cut to ``kw`` on ``dev`` against the same module on the host CPU
+    (see ``recsys_phase``); returns the line to print."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.train import model_and_data
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step, to_device,
+                                   value_and_grad)
+    from repro_torch.tree import leaves
+
+    def rel(a, b):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    cfg = dataclasses.replace(get_spec(arch).config, **kw)
+    host, loss_fn, batch_fn = model_and_data(cfg, b_cmp, 0, "cpu")
+    models = [model_and_data(cfg, b_cmp, 1, dev)[0].params_from_reference(
+        host.to_tree()) for _ in range(2)]
+    batch = batch_fn(0)
+    bd = to_device(batch, dev)
+    if arch == "two-tower-retrieval":
+        out_c = rs.retrieval_scores(host, batch["user"], batch["item"])
+        out_d = rs.retrieval_scores(models[0], bd["user"], bd["item"])
+    elif arch == "bst":
+        out_c = host(batch["hist"], batch["target"])
+        out_d = models[0](bd["hist"], bd["target"])
+    else:
+        out_c = host(batch["dense"], batch["sparse"])
+        out_d = models[0](bd["dense"], bd["sparse"])
+    lc, gc = value_and_grad(loss_fn, host, batch)
+    ld, gd = value_and_grad(loss_fn, models[0], bd)
+    errs = {"logits": rel(out_d, out_c), "loss": rel(ld, lc),
+            "grads": max(rel(a, b) for a, b in zip(leaves(gd),
+                                                   leaves(gc)))}
+    check(all(e <= 1e-4 for e in errs.values())
+          and torch.isfinite(out_d).all(),
+          f"{arch}: card vs CPU {errs}")
+    top = ""
+    if arch == "two-tower-retrieval":
+        rng = np.random.default_rng(SEED)
+        prior = rng.random(cfg.n_items) + 1e-3
+        users = torch.arange(4)
+        cands = torch.arange(cfg.n_items)
+        with torch.no_grad():
+            vc, ic = rs.retrieval_topk(host, users, cands, 101,
+                                       torch.from_numpy(prior), 0.5)
+            vd, idd = rs.retrieval_topk(models[0], users.to(dev),
+                                        cands.to(dev), 101,
+                                        torch.from_numpy(prior).to(dev),
+                                        0.5)
+        check(vd.dtype == torch.float64, "the f64 prior did not promote")
+        tol = 1e-4 * float(vc.abs().max())
+        gap = vc[:, :-1] - vc[:, 1:]
+        firm = torch.ones((4, 100), dtype=torch.bool)
+        firm[:, 1:] &= gap[:, :99] > tol
+        firm &= gap[:, :100] > tol
+        agree = (idd[:, :100].cpu() == ic[:, :100]) | ~firm
+        check(bool(agree.all()),
+              f"two-tower top-100 card vs CPU differ at "
+              f"{(~agree).nonzero().tolist()[:10]}")
+        top = (f"; top-100 of 4 users over {cfg.n_items} candidates "
+               f"(f64 prior, before the steps): {int(firm.sum())} of 400 "
+               f"positions separated by > {tol:.1e}, all equal to the "
+               f"CPU's")
+    oc = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(loss_fn, oc)
+    st_c, st_d = init_opt_state(host), init_opt_state(models[0])
+    st_e = init_opt_state(models[1])
+    losses = []
+    for s in range(3):
+        bs = batch_fn(s)
+        _, _, mc = step(host, st_c, bs)
+        _, _, md = step(models[0], st_d, to_device(bs, dev))
+        if s == 0:
+            step(models[1], st_e, to_device(bs, dev))
+            same = all(torch.equal(a, b) for a, b in zip(
+                leaves(models[0].to_tree()) + leaves(st_d["m"])
+                + leaves(st_d["v"]), leaves(models[1].to_tree())
+                + leaves(st_e["m"]) + leaves(st_e["v"])))
+            check(same, f"{arch}: two identical card steps differ")
+        losses.append((float(md["loss"]), float(mc["loss"])))
+    lerr = max(abs(a - b) / abs(b) for a, b in losses)
+    check(lerr <= 1e-4 and all(np.isfinite(a) for a, _ in losses),
+          f"{arch}: 3-step losses card vs CPU {losses}")
+    line = (f"[3g card vs cpu {arch}] rows cut {kw}, batch {b_cmp}: "
+            f"rel err logits {errs['logits']:.2e} loss "
+            f"{errs['loss']:.2e} grads (max over "
+            f"{len(leaves(gc))} leaves) {errs['grads']:.2e}; 3-step "
+            f"losses {[round(a, 6) for a, _ in losses]} rel err "
+            f"{lerr:.2e}; two identical card steps bit-equal{top}")
+    return line
+
+
+def recsys_phase():
+    """Phase 3g: the example ports and the recsys family on the card.
+
+    (a) The five example ports (``examples/*_torch.py``) as subprocesses
+    on the card, run together, each held to the JAX package's lines
+    (``example_problems``). (b) Card against the host CPU at full widths
+    with the rows cut (vocab per field 1,000 for dlrm-rm2 and dcn-v2,
+    100k for bst; two-tower 10k users and 100k items), batch 512, from the
+    same parameters (the CPU module's, carried to the card) and batch:
+    logits, loss and every gradient within 1e-4 of the CPU's, relative
+    to the largest magnitude; 3 train steps' losses within 1e-4
+    relative; two identical card steps give the same bits (params and
+    moments); for the two-tower the top-100 of 4 users over the 100k
+    candidates with a float64 prior equals the CPU's wherever adjacent
+    scores differ by more than 1e-4 of the largest. TF32 must be off.
+    (c) ``python -m repro_torch.launch.train`` at full ``CONFIG`` with
+    batch 65,536, 20 steps, for dlrm-rm2, dcn-v2 and bst (bst with
+    ``--ckpt``, then ``--resume`` to 22 steps); the two-tower in this
+    process at 1M users and items, batch 8,192 (``StepTimer``): median
+    step ms (CUDA events, after 2 warm-up steps), the wall a step with the
+    host's batch build and H2D, samples/s over that wall, the batch
+    build's share of it, peak allocated memory, first and last loss, all
+    finite. (d) Retrieval at the full two-tower
+    ``CONFIG`` (10M x 256 tables, forward only): the card's
+    ``accel_hits`` prior on ``bipartite_interactions(1M, 1M, 10M, seed
+    0)``, 256 users against 1M candidates, k 100, with and without the
+    prior (which must raise the top-k's mean authority); ms of HITS, the
+    towers, the scores and the top-k. Its files (the examples' spills,
+    bst's checkpoint: ~3.9 GB) go under a temporary directory that is
+    removed however the phase ends."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="smoke_3g_")
+    try:
+        _recsys_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _recsys_phase(tmp):
+    """The body of ``recsys_phase``, writing its files under ``tmp``."""
+    import dataclasses
+    import os
+    import re
+    import shutil
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.core import accel_hits
+    from repro_torch.graph import bipartite_interactions
+    from repro_torch.launch.train import StepTimer
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import (AdamWConfig, DataConfig, adamw_update,
+                                   init_opt_state, make_train_step,
+                                   recsys_batch, to_device, twotower_batch,
+                                   value_and_grad)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on: the card would not hold the CPU's f32 results")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), TMPDIR=tmp)
+
+    # ------------------------------------------------ (a) the examples
+    t0 = time.perf_counter()
+    procs = {}
+    for name in EXAMPLE_LINES:
+        log = open(os.path.join(tmp, f"{name}.log"), "w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / f"{name}_torch.py")],
+            stdout=log, stderr=subprocess.STDOUT, text=True, env=env,
+            cwd=tmp), log)
+    for name, (proc, log) in procs.items():
+        try:
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        log.seek(0)
+        out = log.read()
+        log.close()
+        problems = example_problems(name, out) if rc == 0 else [f"rc {rc}"]
+        check(not problems, f"examples/{name}_torch.py on the card: "
+                            f"{problems}\n{out[-3000:]}")
+        keep = [x for x in out.splitlines() if re.search(
+            r"iterations|iters|sweeps|hits|L1=|queries from|restored|"
+            r"authority|loss=", x)]
+        print(f"[3g example {name}] matches the JAX package's lines; "
+              + " | ".join(x.strip() for x in keep[:8]), flush=True)
+    print(f"[3g examples] 5 ports on the card, run together: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ------------------------------------- (b) card against the host CPU
+    for arch, kw in RECSYS_ROWS_CUT.items():
+        print(recsys_vs_host(arch, kw, dev), flush=True)
+    torch.cuda.empty_cache()
+    loss_fn = lambda m, b: m.loss(b)  # noqa: E731
+
+    # --------------------------------------- (c) training at full config
+    step_re = re.compile(r"step\s+(\d+) loss (\S+) lr (\S+) gnorm (\S+)")
+    time_re = re.compile(r"timing: step ms median (\S+) over (\d+) steps "
+                         r"\(CUDA events\); wall ms a step (\S+) .*?, "
+                         r"(\d+) samples/s over the wall; batch build ms "
+                         r"median (\S+) .*?, H2D ms median (\S+) .*?; "
+                         r"peak allocated (\S+) GB")
+
+    def timing_line(t, peak_gb):
+        return (f"step ms median {t['step']:.3f} (CUDA events, {t['n']} "
+                f"steps after 2 warm-up); wall ms a step {t['wall_ms']:.3f} "
+                f"(host clock, batch build and H2D included), "
+                f"{t['samples_per_s']:.0f} samples/s over the wall; batch "
+                f"build {t['build']:.3f} ms (host clock, "
+                f"{t['build'] / t['wall_ms']:.1%} of the wall), H2D "
+                f"{t['h2d']:.3f} ms; peak allocated {peak_gb:.2f} GB")
+    big = 65536
+
+    def train(arch, *extra):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             arch, "--batch", str(big), *extra], capture_output=True,
+            text=True, env=env, cwd=tmp, timeout=600)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"launch.train {arch} {extra}: rc "
+                                 f"{r.returncode}\n{r.stdout[-2000:]}\n"
+                                 f"{r.stderr[-3000:]}")
+        steps = step_re.findall(r.stdout)
+        check(steps and all(np.isfinite(float(x[1])) for x in steps),
+              f"launch.train {arch}: losses {steps}")
+        return r.stdout, steps, time_re.search(r.stdout), wall
+
+    ck_dir = os.path.join(tmp, "bst_ckpt")
+    for arch in ("dlrm-rm2", "dcn-v2", "bst"):
+        extra = ["--steps", "20"]
+        if arch == "bst":
+            extra += ["--ckpt", ck_dir, "--ckpt-every", "20"]
+        out, steps, tm, wall = train(arch, *extra)
+        check(tm is not None, f"launch.train {arch}: no timing line\n{out}")
+        t = dict(step=float(tm.group(1)), n=int(tm.group(2)),
+                 wall_ms=float(tm.group(3)), samples_per_s=int(tm.group(4)),
+                 build=float(tm.group(5)), h2d=float(tm.group(6)))
+        print(f"[3g train {arch}] full CONFIG, batch {big}, 20 steps: "
+              f"{timing_line(t, float(tm.group(7)))}; "
+              f"loss first {float(steps[0][1]):.4f} (step {steps[0][0]}) "
+              f"last {float(steps[-1][1]):.4f} (step {steps[-1][0]}); "
+              f"process wall {wall:.1f} s", flush=True)
+    out, steps, _tm, wall = train("bst", "--steps", "22", "--ckpt", ck_dir,
+                                  "--ckpt-every", "20", "--resume")
+    check("resumed from step 20" in out and "done: 2 steps" in out,
+          f"bst did not resume from its checkpoint\n{out}")
+    size = sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _d, fs in os.walk(ck_dir) for f in fs)
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    print(f"[3g train bst resume] resumed from step 20 (checkpoint "
+          f"{size / 1e9:.2f} GB of npz), 2 more steps, loss "
+          f"{float(steps[-1][1]):.4f}; process wall {wall:.1f} s",
+          flush=True)
+
+    # where a full-config dlrm-rm2 step goes: forward + backward, then
+    # AdamW (global-norm clip included) over its 1.66 G f32 parameters
+    cfg = get_spec("dlrm-rm2").config
+    model = rs.build(cfg, seed=0, device=dev)
+    st = init_opt_state(model)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    bs = to_device(recsys_batch(DataConfig(
+        kind="recsys", global_batch=big, sparse_vocab=cfg.vocab_per_field),
+        0), dev)
+    fb_ms, opt_ms = [], []
+    for _ in range(4):
+        a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        a.record()
+        _, grads = value_and_grad(loss_fn, model, bs)
+        b.record()
+        adamw_update(model, grads, st, oc)
+        c.record()
+        torch.cuda.synchronize()
+        fb_ms.append(a.elapsed_time(b))
+        opt_ms.append(b.elapsed_time(c))
+        del grads
+    n_par = sum(p.numel() for p in model.parameters())
+    adam_b = 7 * 4 * n_par  # read p, g, m, v; write p, m, v (f32)
+    clip_b = 3 * 4 * n_par  # the norm reads g; the scale reads, writes g
+    print(f"[3g dlrm-rm2 step split] full CONFIG, batch {big} (3 steps after "
+          f"1 warm-up, CUDA events): forward + backward "
+          f"{statistics.median(fb_ms[1:]):.3f} ms, AdamW with the clip "
+          f"{statistics.median(opt_ms[1:]):.3f} ms over {n_par:,} f32 "
+          f"parameters; AdamW's byte bound {adam_b / 1e9:.1f} GB = "
+          f"{adam_b / HBM_BYTES_PER_S * 1e3:.3f} ms, with the clip's "
+          f"{(adam_b + clip_b) / 1e9:.1f} GB = "
+          f"{(adam_b + clip_b) / HBM_BYTES_PER_S * 1e3:.3f} ms", flush=True)
+    del model, st, bs
+    torch.cuda.empty_cache()
+
+    # the two-tower in this process: 1M users and items, batch 8,192
+    tt_cfg = dataclasses.replace(get_spec("two-tower-retrieval").config,
+                                 n_users=1_000_000, n_items=1_000_000)
+    tt_b = 8192
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = rs.build(tt_cfg, seed=0, device=dev)
+    dc = DataConfig(kind="twotower", global_batch=tt_b)
+    step = make_train_step(loss_fn, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                total_steps=20))
+    st = init_opt_state(model)
+    timer, losses = StepTimer(dev), []
+    for s in range(20):
+        with timer.span("build"):
+            bs = twotower_batch(dc, s, tt_cfg.n_users, tt_cfg.n_items)
+        with timer.span("h2d"):
+            bs = to_device(bs, dev)
+        with timer.span("step"):
+            _, st, m = step(model, st, bs)
+        losses.append(m["loss"])
+    t = timer.summary(tt_b)
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"two-tower losses {losses}")
+    print(f"[3g train two-tower-retrieval] in process, 1M users and items "
+          f"(rows cut from 10M), batch {tt_b} (cut from 65,536): "
+          f"{timing_line(t, torch.cuda.max_memory_allocated(dev) / 1e9)}; "
+          f"loss first {losses[0]:.4f} last {losses[-1]:.4f}", flush=True)
+    del model, st, step
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- (d) retrieval at full CONFIG
+    cfg = get_spec("two-tower-retrieval").config
+    t0 = time.perf_counter()
+    model = rs.build(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_u = n_i = 1_000_000
+    gb = bipartite_interactions(n_u, n_i, 10_000_000, seed=0)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = accel_hits(gb, tol=1e-9, device=dev)
+    hits_ms = (time.perf_counter() - t0) * 1e3
+    check(r.converged and np.isfinite(r.aux).all(),
+          f"accel_hits on the interaction graph: {r.iters} iters, "
+          f"converged {r.converged}")
+    prior = torch.from_numpy(r.aux[n_u:] + 1e-12).to(dev)
+    users = torch.arange(256, device=dev)
+    cands = torch.arange(1_000_000, device=dev)
+
+    def ev_ms(fn, n=3):
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b) / n
+
+    with torch.no_grad():
+        v, item_ms = ev_ms(lambda: rs.item_embed(model, cands))
+        u, user_ms = ev_ms(lambda: rs.user_embed(model, users))
+        sc, score_ms = ev_ms(lambda: u @ v.T + 0.5 * torch.log(
+            prior + 1e-12)[None, :])
+        (_, blended), topk_ms = ev_ms(lambda: rs.topk(sc, 100))
+        (_, base), _ms = ev_ms(lambda: rs.topk(u @ v.T, 100), 1)
+        (vals, idx), call_ms = ev_ms(lambda: rs.retrieval_topk(
+            model, users, cands, 100, prior, 0.5), 1)
+    check(torch.equal(idx, blended) and vals.dtype == torch.float64
+          and vals.shape == (256, 100) and torch.isfinite(vals).all(),
+          "retrieval_topk differs from its steps")
+    mb, mp = float(prior[base].mean()), float(prior[blended].mean())
+    check(mp > mb, f"the prior did not raise the top-k's mean authority: "
+                   f"base {mb:.3e} blended {mp:.3e}")
+    flops = 2 * 1_000_000 * sum(a * b for a, b in zip(
+        (cfg.embed_dim,) + cfg.tower_mlp[:-1], cfg.tower_mlp))
+    print(f"[3g retrieval] full two-tower CONFIG (2 x {cfg.n_items:,} x "
+          f"{cfg.embed_dim} f32 tables, init {init_s * 1e3:.1f} ms): "
+          f"prior = "
+          f"accel_hits on bipartite_interactions(1M, 1M, 10M, seed 0) "
+          f"({gb.n_edges:,} edges after dedup, generated in {gen_s:.1f} s "
+          f"on the host): {r.iters} sweeps, {hits_ms:.1f} ms wall on the "
+          f"card; 256 users x 1M candidates, k 100: item tower "
+          f"{item_ms:.3f} ms ({flops / 1e12:.3f} TFLOP f32, bound "
+          f"{flops / PEAK_FLOPS['float32'] * 1e3:.3f} ms), user tower "
+          f"{user_ms:.3f} ms, scores + prior (f64) {score_ms:.3f} ms, "
+          f"top-k {topk_ms:.3f} ms, whole retrieval_topk call "
+          f"{call_ms:.3f} ms; mean authority of the top-100 base "
+          f"{mb:.3e} blended {mp:.3e}", flush=True)
+    del model, v, u, sc
+    torch.cuda.empty_cache()
+    print(f"[3g] phase 3g: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 

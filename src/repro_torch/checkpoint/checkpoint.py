@@ -25,43 +25,23 @@ from typing import Optional
 
 import numpy as np
 
+from ..tree import tree_map_with_path, walk
+
 SEP = "::"
 
 
-def _walk(tree, path=()):
-    """(path, leaf) pairs in ``jax.tree_util``'s order."""
-    if tree is None:
-        return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _walk(tree[k], path + (f"k={k}",))
-    elif isinstance(tree, (list, tuple)):
-        for i, x in enumerate(tree):
-            yield from _walk(x, path + (f"i={i}",))
-    else:
-        yield path, tree
-
-
 def _flatten(tree) -> dict:
-    return {SEP.join(path): np.asarray(leaf) for path, leaf in _walk(tree)}
+    return {SEP.join(path): np.asarray(leaf) for path, leaf in walk(tree)}
 
 
-def _unflatten_into(template, arrays: dict, path=()):
-    if template is None:
-        return None
-    if isinstance(template, dict):
-        return {k: _unflatten_into(template[k], arrays, path + (f"k={k}",))
-                for k in sorted(template)}
-    if isinstance(template, (list, tuple)):
-        return type(template)(_unflatten_into(x, arrays, path + (f"i={i}",))
-                              for i, x in enumerate(template))
-    key = SEP.join(path)
-    if key not in arrays:
-        raise KeyError(f"checkpoint missing leaf {key}")
-    arr = arrays[key]
-    if hasattr(template, "dtype"):
-        arr = arr.astype(template.dtype)
-    return arr
+def _unflatten_into(template, arrays: dict):
+    def leaf(path, like):
+        key = SEP.join(path)
+        if key not in arrays:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        arr = arrays[key]
+        return arr.astype(like.dtype) if hasattr(like, "dtype") else arr
+    return tree_map_with_path(leaf, template)
 
 
 def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None):

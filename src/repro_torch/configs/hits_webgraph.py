@@ -1,8 +1,10 @@
 """The paper's own workload: accelerated-HITS power sweeps over web-scale
-graphs, and the serving defaults ``launch.serve_rank`` reads (port of the
-``RankingConfig`` of ``repro.configs.hits_webgraph``; its dry-run
-``ArchSpec`` is not carried)."""
+graphs, and the serving defaults ``launch.serve_rank`` reads (port of
+``repro.configs.hits_webgraph``: the ``RankingConfig`` and its
+``ArchSpec``)."""
 import dataclasses
+
+from .base import RANKING_SHAPES, ArchSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,3 +55,9 @@ class RankingConfig:
 
 CONFIG = RankingConfig()
 SMOKE_CONFIG = RankingConfig(name="hits-webgraph-smoke")
+
+SPEC = ArchSpec(
+    arch_id="hits-webgraph", family="ranking", config=CONFIG,
+    smoke_config=SMOKE_CONFIG, shapes=RANKING_SHAPES,
+    notes="paper's QI-HITS/accelerated-HITS sweep as a multi-pod workload",
+)

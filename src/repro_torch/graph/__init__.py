@@ -1,7 +1,8 @@
 import numpy as np
 
 from .generators import (PAPER_TABLE7, WebGraphSpec, all_paper_datasets,
-                         generate_webgraph, paper_dataset)
+                         bipartite_interactions, generate_webgraph,
+                         paper_dataset)
 from .partition import partition_edges, partition_edges_by_dst_block
 from .structure import (BSR, CSR, Graph, next_pow2, padded_neighbors, to_bsr,
                         to_csr)
@@ -19,6 +20,7 @@ def from_reference(g) -> Graph:
 __all__ = [
     "BSR", "CSR", "Graph", "next_pow2", "padded_neighbors", "to_bsr",
     "to_csr", "PAPER_TABLE7", "WebGraphSpec", "all_paper_datasets",
+    "bipartite_interactions",
     "generate_webgraph", "paper_dataset",
     "partition_edges", "partition_edges_by_dst_block",
     "FocusedSubgraph", "SubgraphExtractor", "root_set_key", "from_reference",

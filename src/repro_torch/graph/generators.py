@@ -107,3 +107,15 @@ def paper_dataset(name: str, scale: float = 1.0, seed: int = 0) -> Graph:
 
 def all_paper_datasets(scale: float = 1.0, seed: int = 0):
     return {name: paper_dataset(name, scale, seed) for name in PAPER_TABLE7}
+
+
+def bipartite_interactions(n_users: int, n_items: int, n_edges: int,
+                           alpha_item: float = 2.0, seed: int = 0) -> Graph:
+    """User->item interaction graph (for retrieval-with-HITS). Users occupy
+    ids [0, n_users), items [n_users, n_users + n_items)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_users, size=n_edges).astype(np.int32)
+    w = _powerlaw_weights(n_items, alpha_item, rng)
+    w = w / w.sum()
+    dst = (n_users + rng.choice(n_items, size=n_edges, p=w)).astype(np.int32)
+    return Graph(n_users + n_items, src, dst).dedup()

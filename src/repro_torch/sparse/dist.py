@@ -34,7 +34,7 @@ what ``launch.hlo_analysis.collective_bytes`` reads from the reference's
 HLO; ``Mesh.segment_sums`` counts the shard segment sums (on the card
 each one reads its lengths on the host). Each collective and segment sum
 runs inside a ``torch.profiler.record_function`` range (``dist.psum``,
-``dist.all_gather``, ``dist.ppermute``, ``dist.segment_sum``), so a
+``dist.pmax``, ``dist.all_gather``, ``dist.ppermute``, ``dist.segment_sum``), so a
 profiler trace splits the device time between them.
 
 ``make_dryrun_rank_sweep`` is not here: it stays with its only caller,
@@ -151,6 +151,19 @@ def psum(mesh: Mesh, parts):
             acc = acc + (p.float() if low else p)
         if low:
             acc = acc.to(torch.bfloat16)
+        mesh._count("all-reduce", acc)
+        return mesh.replicate(acc)
+
+
+def pmax(mesh: Mesh, parts):
+    """All-reduce by max: the shards' parts' elementwise max (exact in any
+    order), placed on every shard's device. Counted as an all-reduce, the
+    collective XLA lowers ``lax.pmax`` to."""
+    with record_function("dist.pmax"):
+        home = parts[0].device
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = torch.maximum(acc, _to(p, home))
         mesh._count("all-reduce", acc)
         return mesh.replicate(acc)
 

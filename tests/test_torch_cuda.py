@@ -928,3 +928,87 @@ def test_hits_sweep_bsr_raises_past_free_memory(cuda, monkeypatch):
                         lambda device=None: (1 << 20, 80 << 30))
     with pytest.raises(MemoryError, match="hits_sweep_bsr"):
         pops.hits_sweep_bsr(g, device=cuda)
+
+
+# ------------------------------------------------- the recsys family
+RECSYS_ARCHS = ("dlrm-rm2", "dcn-v2", "bst", "two-tower-retrieval")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECSYS_ARCHS)
+def test_recsys_card_matches_host(arch, cuda):
+    """Smoke config, the host module's parameters carried to the card:
+    loss and every gradient within 1e-4 of the host's (relative to the
+    largest magnitude; TF32 off), and two identical card train steps give
+    the same bits (F.embedding's backward has no float atomics)."""
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.train import model_and_data
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step, to_device,
+                                   value_and_grad)
+    from repro_torch.tree import leaves
+    assert torch.get_float32_matmul_precision() == "highest"
+    cfg = get_spec(arch).smoke_config
+    host, fn, batch_fn = model_and_data(cfg, 64, 0, "cpu")
+    card = [model_and_data(cfg, 64, 1, cuda)[0].params_from_reference(
+        host.to_tree()) for _ in range(2)]
+    batch = batch_fn(0)
+    lc, gc = value_and_grad(fn, host, batch)
+    ld, gd = value_and_grad(fn, card[0], to_device(batch, cuda))
+    for a, b in [(ld, lc)] + list(zip(leaves(gd), leaves(gc))):
+        a, b = a.double().cpu(), b.double()
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            float(b.abs().max()), 1e-30)
+    step = make_train_step(fn, AdamWConfig(lr=1e-3, warmup_steps=1))
+    states = [init_opt_state(m) for m in card]
+    for m, st in zip(card, states):
+        step(m, st, to_device(batch, cuda))
+    for x, y in zip(leaves(card[0].to_tree()) + leaves(states[0]["m"]),
+                    leaves(card[1].to_tree()) + leaves(states[1]["m"])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_chunked_attention_and_topk_on_card(cuda):
+    """``chunked_attention`` on the card against the host (GQA, causal,
+    windowed, a padded last chunk: 1e-5 of the largest magnitude);
+    ``topk`` on the card breaks ties to the lowest index."""
+    from repro_torch.models.layers import chunked_attention
+    from repro_torch.models.recsys import topk
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 19, 6, 8), generator=g)
+    k, v = (torch.randn((2, 19, 2, 8), generator=g) for _ in range(2))
+    for kw in (dict(causal=True, window=5, chunk=8),
+               dict(causal=False, chunk=8)):
+        want = chunked_attention(q, k, v, **kw)
+        got = chunked_attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    s = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0, 1.0, 2.0, 0.0]] * 3,
+                     device=cuda)
+    _, idx = topk(s, 5)
+    assert idx.cpu().tolist() == [[1, 2, 4, 3, 6]] * 3
+
+
+@pytest.mark.cuda
+def test_train_launcher_on_card(cuda, tmp_path):
+    """``python -m repro_torch.launch.train`` on the card (bst smoke):
+    CUDA-event timing with a peak memory, a checkpoint, then ``--resume``."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "bst", "--smoke", "--batch", "64", "--ckpt-every", "4",
+            "--ckpt", str(tmp_path / "ck")]
+    r = subprocess.run(args + ["--steps", "8"], capture_output=True,
+                       text=True, env=env, cwd=tmp_path, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "(CUDA events)" in r.stdout and " GB" in r.stdout, r.stdout
+    r = subprocess.run(args + ["--steps", "10", "--resume"],
+                       capture_output=True, text=True, env=env,
+                       cwd=tmp_path, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "resumed from step 8" in r.stdout and "done: 2 steps" in r.stdout

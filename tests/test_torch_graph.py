@@ -108,13 +108,17 @@ def test_accel_weights_and_blocking_permutation_equal():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """By AST over every module of the package and over ``chip_smoke.py``
-    and ``chip_ablation.py`` (which run where jax is absent), and by
+    """By AST over every module of the package, over ``chip_smoke.py``
+    and ``chip_ablation.py`` and over the example ports
+    ``examples/*_torch.py`` (which run where jax is absent), and by
     sys.modules after importing all of the package in a fresh
     interpreter."""
     mods = []
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(examples) == 5, examples
     for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                              ROOT / "chip_ablation.py"]:
+                                              ROOT / "chip_ablation.py"] \
+            + examples:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -126,7 +130,7 @@ def test_port_imports_neither_jax_nor_repro():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro"), (path, name)
-        if path.parent == ROOT:
+        if not path.is_relative_to(PORT):
             continue  # a script beside the package, not one of its modules
         rel = path.relative_to(PORT.parent).with_suffix("")
         mods.append(".".join(p for p in rel.parts if p != "__init__"))

@@ -1,10 +1,13 @@
-"""The port's launcher (``python -m repro_torch.launch.serve_rank``) on the
-CPU: the same synthetic graph and seed through it and through the JAX
-package's launcher give the same cache, plan and spill counters and the
-same top-k; the queued frontend answers ``/healthz``, rolls a
-``--delta-file`` on SIGHUP and drains to exit 0 on SIGTERM; and its
-helpers (``zipf_query_stream``, ``load_delta_file``, ``roll_delta``)
-match the reference's.
+"""The port's launchers on the CPU. ``python -m
+repro_torch.launch.serve_rank``: the same synthetic graph and seed
+through it and through the JAX package's launcher give the same cache,
+plan and spill counters and the same top-k; the queued frontend answers
+``/healthz``, rolls a ``--delta-file`` on SIGHUP and drains to exit 0 on
+SIGTERM; and its helpers (``zipf_query_stream``, ``load_delta_file``,
+``roll_delta``) match the reference's. ``python -m
+repro_torch.launch.train``: each recsys ``--arch --smoke``,
+``--ckpt``/``--resume``, checkpoints that cross packages both ways, and
+the refusals.
 
 Every wait on the subprocess has a timeout, so a hang fails the test.
 """
@@ -291,3 +294,127 @@ def test_sharded_backend_and_missing_card_raise(tmp_path, monkeypatch):
         monkeypatch.setattr(sys, "argv", small + extra)
         with pytest.raises(RuntimeError, match="cuda"):
             plaunch.main()
+
+
+# ------------------------------------------------------- launch.train
+TRAIN = ["--smoke", "--steps", "6", "--batch", "8", "--ckpt-every", "3"]
+
+
+def ckpt_arrays(d, step):
+    with np.load(Path(d) / f"step_{step:010d}" / "arrays.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "dcn-v2", "bst",
+                                  "two-tower-retrieval"])
+def test_train_launcher_each_recsys_arch(arch, tmp_path):
+    """``--arch <recsys> --smoke`` on the CPU: the reference's step lines
+    (steps 0 and the last), finite losses, the ``timing:`` line; the
+    checkpoint holds the keys, shapes and dtypes of the reference's
+    ``{"params", "opt"}`` tree (what ``repro.launch.train`` saves)."""
+    import jax
+    from repro.checkpoint import checkpoint as rck
+    from repro.configs import get_spec as ref_spec
+    from repro.models import recsys as rs
+    from repro.train import init_opt_state as ref_init_opt
+    out = launch("repro_torch.launch.train", "--arch", arch, *TRAIN,
+                 "--device", "cpu", "--ckpt", str(tmp_path / "p"),
+                 cwd=tmp_path)
+    steps = re.findall(r"step\s+(\d+) loss (\S+) lr (\S+) gnorm (\S+)", out)
+    assert [int(s[0]) for s in steps] == [0, 5]
+    assert all(np.isfinite(float(s[1])) for s in steps)
+    assert "done: 6 steps" in out and "timing: step ms median" in out
+    cfg = ref_spec(arch).smoke_config
+    init = {"dlrm-rm2": rs.init_dlrm_params, "dcn-v2": rs.init_dcn_params,
+            "bst": rs.init_bst_params,
+            "two-tower-retrieval": rs.init_twotower_params}[arch]
+    params = init(cfg, jax.random.key(0))
+    want = rck._flatten({"params": params, "opt": ref_init_opt(params)})
+    got = ckpt_arrays(tmp_path / "p", 6)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].shape == want[k].shape and \
+            got[k].dtype == want[k].dtype, k
+    assert int(got["k=opt::k=step"]) == 6
+
+
+def test_train_launcher_resumes_its_own_checkpoint(tmp_path):
+    """bst: 6 steps with a checkpoint every 3, then ``--resume`` to 9
+    steps starts after step 6 and writes step 9."""
+    ck = str(tmp_path / "ck")
+    launch("repro_torch.launch.train", "--arch", "bst", *TRAIN, "--device",
+           "cpu", "--ckpt", ck, cwd=tmp_path)
+    out = launch("repro_torch.launch.train", "--arch", "bst", "--smoke",
+                 "--steps", "9", "--batch", "8", "--ckpt-every", "3",
+                 "--device", "cpu", "--ckpt", ck, "--resume", cwd=tmp_path)
+    assert "resumed from step 6" in out and "done: 3 steps" in out
+    assert int(ckpt_arrays(ck, 9)["k=opt::k=step"]) == 9
+
+
+@pytest.mark.parametrize("writer", ["repro", "repro_torch"])
+def test_train_checkpoint_crosses_packages(writer, tmp_path):
+    """A checkpoint written by either package's ``launch.train`` resumes
+    in the other: restored parameters, moments and step equal the file bit
+    for bit, and the other launcher continues from it."""
+    import jax
+    from repro.checkpoint import checkpoint as rck
+    from repro.models import recsys as rs
+    from repro.train import init_opt_state as ref_init_opt
+    from repro_torch.configs import get_spec
+    from repro_torch.launch import train as ptrain
+    from repro_torch.train import init_opt_state
+    from repro_torch.tree import leaves
+    ck = str(tmp_path / "ck")
+    dev = ["--device", "cpu"] if writer == "repro_torch" else []
+    launch(f"{writer}.launch.train", "--arch", "bst", *TRAIN, "--ckpt", ck,
+           *dev, cwd=tmp_path)
+    arrays = ckpt_arrays(ck, 6)
+    cfg = get_spec("bst").smoke_config
+    if writer == "repro":
+        model, _loss, _bf = ptrain.model_and_data(cfg, 8, seed=5,
+                                                  device="cpu")
+        opt = init_opt_state(model)
+        assert ptrain.restore(ck, model, opt) == 6
+        tree = ptrain.checkpoint_tree(model, opt)
+        from repro_torch.checkpoint import checkpoint as pck
+        flat = pck._flatten(tree)
+        assert list(flat) == list(arrays)
+        for k in arrays:
+            assert flat[k].dtype == arrays[k].dtype and \
+                np.array_equal(flat[k], arrays[k]), k
+        assert opt["step"].dtype == torch.int32 and int(opt["step"]) == 6
+        assert all(p.dtype == torch.float32 for p in leaves(model.to_tree()))
+        other = ["repro_torch.launch.train", "--device", "cpu"]
+    else:
+        params = rs.init_bst_params(cfg, jax.random.key(9))
+        tree, step, _ = rck.restore(ck, {"params": params,
+                                         "opt": ref_init_opt(params)})
+        assert step == 6
+        flat = rck._flatten(tree)
+        assert list(flat) == list(arrays)
+        for k in arrays:
+            assert np.array_equal(np.asarray(flat[k]), arrays[k]), k
+        other = ["repro.launch.train"]
+    out = launch(other[0], "--arch", "bst", "--smoke", "--steps", "9",
+                 "--batch", "8", "--ckpt-every", "3", "--ckpt", ck,
+                 "--resume", *other[1:], cwd=tmp_path)
+    assert "resumed from step 6" in out and "done: 3 steps" in out
+
+
+def test_train_launcher_refusals(tmp_path, monkeypatch):
+    """An LM or GNN arch exits non-zero, saying it is not ported yet
+    (ROADMAP item 11); the ranking arch is sent to launch.rank as the
+    reference does; without ``--device cpu`` and no card it raises."""
+    for arch in ("deepseek-7b", "gin-tu"):
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             arch, "--smoke", "--device", "cpu"], capture_output=True,
+            text=True, env=env(), cwd=tmp_path, timeout=WAIT)
+        assert r.returncode != 0 and "not ported yet" in r.stderr \
+            and "item 11" in r.stderr, r.stderr
+    from repro_torch.launch import train as ptrain
+    with pytest.raises(SystemExit, match="launch.rank"):
+        ptrain.main(["--arch", "hits-webgraph", "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ptrain.main(["--arch", "bst", "--smoke", "--steps", "1"])
