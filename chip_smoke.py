@@ -264,6 +264,50 @@ def example_problems(name, out):
     return bad
 
 
+# The LM example ports' lines: the reference's formats and sizes (their
+# init, prompts and batches come from seeded torch Generators, so tokens
+# and losses are not the JAX package's bits); made from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python examples/serve_decode.py
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python examples/train_lm.py --steps 21
+LM_EXAMPLE_LINES = {
+    "serve_decode": {"args": [], "prompt": 6, "gen": 24, "vocab": 128,
+                     "served": r"served batch=8: 192 tokens in \S+s \(\S+ "
+                               r"tok/s, rolling SWA cache len=16\)"},
+    "train_lm": {"args": ["--steps", "21"],
+                 "model": "model: 8.1M params (demo-20m)", "steps": [0, 20]},
+}
+
+
+def lm_example_problems(name, out):
+    """What in an LM example's output departs from the reference's lines
+    (``LM_EXAMPLE_LINES``): the serving line and a sample of 6 prompt
+    tokens -> 24 generated in the vocab; the trainer's model line and
+    step lines, finite losses, the last below the first."""
+    import ast
+    import re
+    want = LM_EXAMPLE_LINES[name]
+    bad = []
+    if name == "serve_decode":
+        if not re.search(want["served"], out):
+            bad.append("no served line")
+        m = re.search(r"sample: (\[.*\]) -> (\[.*\])", out)
+        if not m:
+            return bad + ["no sample line"]
+        p, g = ast.literal_eval(m.group(1)), ast.literal_eval(m.group(2))
+        if len(p) != want["prompt"] or len(g) != want["gen"] or not all(
+                0 <= t < want["vocab"] for t in p + g):
+            bad.append(f"sample {p} -> {g}")
+    else:
+        if want["model"] not in out.splitlines():
+            bad.append("no model line")
+        steps = re.findall(r"step\s+(\d+) loss (\S+) \((\S+) steps/s\)", out)
+        loss = [float(x[1]) for x in steps]
+        if [int(x[0]) for x in steps] != want["steps"] or not all(
+                np.isfinite(loss)) or not loss[-1] < loss[0]:
+            bad.append(f"steps {steps}")
+    return bad
+
+
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -1001,6 +1045,9 @@ def main():
 
     # ------------------- 3g. the example ports and the recsys family
     recsys_phase()
+
+    # ----------------------------------------------- 3h. the LM family
+    lm_phase()
 
     # ---------------------------------------------------- 4. result lines
     kernels = [
@@ -2392,6 +2439,467 @@ def _recsys_phase(tmp):
     del model, v, u, sc
     torch.cuda.empty_cache()
     print(f"[3g] phase 3g: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# ------------------------------------------------------ phase 3h: the LMs
+LM_ARCHS = ("deepseek-v2-236b", "mixtral-8x7b", "deepseek-7b",
+            "minitron-4b", "minitron-8b")
+# card against the host CPU: f32 as the recsys family; bf16 in ulps at
+# the largest magnitude M (ulp <= M * 2**-7), the CPU tests' bounds
+LM_TOL = {"float32": {"out": 1e-4, "loss": 1e-4, "grad": 1e-4},
+          "bfloat16": {"out": 2 ** -6, "loss": 2 ** -8, "grad": 2 ** -5}}
+# decode against forward at full width (b): at f32 compute as the CPU
+# tests hold it (1e-4 of the largest magnitude), at bf16 sixteen ulps at
+# the largest magnitude (two bf16 paths through 30 layers: measured
+# 3.46e-2 on deepseek-7b, H100 80GB HBM3, 700 W)
+LM_DECODE_TOL = {"float32": 1e-4, "bfloat16": 2 ** -4}
+# full-width serving (b): layers kept of each CONFIG (memory on one 80 GB
+# card: mixtral's 32 layers are 93 GB of bf16, deepseek-v2's 60 are 472)
+LM_SERVE_LAYERS = {"deepseek-7b": 30, "mixtral-8x7b": 16,
+                   "deepseek-v2-236b": 4}
+
+
+class RouteLog:
+    """While installed, records every MoE dispatch's routing on the device
+    it runs on: each token's top-k experts, sorted (``calls``), and
+    whether the capacity dropped one of its slots (``drops``). Two runs
+    of the same calls pair call i with call i, so a token routed
+    differently (a near-tie resolved otherwise by a last-bit difference
+    upstream) is found, not guessed."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        from repro_torch.models.recsys import topk
+        self.calls, self.drops, self._orig = [], [], moe._dispatch
+
+        def rec(x, router_w, top_k, c):
+            g = torch.softmax(x.float() @ router_w.float(), dim=-1)
+            self.calls.append(topk(g, top_k)[1].sort(-1).values.cpu())
+            out = self._orig(x, router_w, top_k, c)
+            self.drops.append((out[1] < 0).any(-1).cpu())
+            return out
+        moe._dispatch = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._dispatch = self._orig
+
+
+def rerouted(a, b):
+    """Per call, the tokens whose experts differ between two RouteLogs."""
+    check(len(a.calls) == len(b.calls), "route logs of unequal length")
+    return [(x != y).any(-1) for x, y in zip(a.calls, b.calls)]
+
+
+def rel_err(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def lm_vs_host(arch, cdt, dev, b=4, s=32, steps=30):
+    """Phase 3h (a) for one smoke config at one compute dtype: the card
+    against the host CPU from the same parameters and batch. Returns
+    (line, problems). Forward logits, loss and every gradient within
+    ``LM_TOL``; ``steps`` greedy decode steps (the card fed the host's
+    tokens), logits within ``LM_TOL`` and argmax equal where the host's
+    top-two margin exceeds it; rows with a token routed differently
+    (``RouteLog``) are left out of the logits and counted, and the loss
+    and gradients are compared only when no token was; ``kvquant`` of
+    the host's cache on both devices: int8 values and scales bit-equal,
+    the round trip within half a scale, its attention within ``LM_TOL``;
+    two identical card decode runs and train steps (parameters and
+    moments) bit-equal."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.models import Transformer
+    from repro_torch.serve import kvquant as kq
+    from repro_torch.train import (AdamWConfig, DataConfig, init_opt_state,
+                                   lm_batch, make_train_step, to_device,
+                                   value_and_grad)
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_spec(arch).smoke_config,
+                              compute_dtype=cdt)
+    tol, bad = LM_TOL[cdt], []
+    host = Transformer(cfg, seed=0, device="cpu")
+    cards = [Transformer(cfg, seed=1, device=dev).params_from_reference(
+        host.to_tree()) for _ in range(2)]
+    batch = lm_batch(DataConfig(kind="lm", global_batch=b, seq_len=s,
+                                vocab=cfg.vocab), 0)
+    bd = to_device(batch, dev)
+
+    def logits(m, toks):
+        with torch.no_grad():
+            x, _ = m(toks)
+            return torch.einsum("bsd,dv->bsv", x, m.unembed.to(x.dtype))
+    with RouteLog() as rh:
+        lh = logits(host, batch["tokens"])
+    with RouteLog() as rd:
+        ld = logits(cards[0], bd["tokens"]).cpu()
+    moved = [t.nonzero().ravel() for t in rerouted(rh, rd)]
+    n_fwd = sum(len(t) for t in moved)
+    rows = sorted({int(t) // s for m in moved for t in m})
+    keep = [r for r in range(b) if r not in rows]
+    errs = {"logits": rel_err(ld[keep], lh[keep]) if keep else 0.0}
+    loss_fn = lambda m, bb: m.loss(bb)  # noqa: E731
+    lc, gc = value_and_grad(loss_fn, host, batch)
+    lg, gd = value_and_grad(loss_fn, cards[0], bd)
+    if not n_fwd:
+        errs["loss"] = rel_err(lg, lc)
+        errs["grads"] = max(rel_err(a, c) for a, c in zip(leaves(gd),
+                                                          leaves(gc)))
+    if errs["logits"] > tol["out"] or errs.get("loss", 0) > tol["loss"] \
+            or errs.get("grads", 0) > tol["grad"] or \
+            not torch.isfinite(lg):
+        bad.append(f"forward {errs}")
+
+    # decode: the host greedy, the card fed the host's tokens (twice)
+    def decode(m, feed=None):
+        cache = m.init_cache(b, steps + 2)
+        tok, out, toks = batch["tokens"][:, 0].to(m.embed.device), [], []
+        with RouteLog() as log:
+            for pos in range(steps):
+                lgt, cache = m.decode_step(cache, tok, pos)
+                out.append(lgt.float().cpu())
+                toks.append(lgt.argmax(-1).cpu())
+                tok = (toks[-1] if feed is None else feed[pos]).to(
+                    m.embed.device)
+        return out, toks, cache, log
+    hl, ht, hcache, hlog = decode(host)
+    dl, _, dcache, dlog = decode(cards[0], ht)
+    dl2, _, _, _ = decode(cards[0], ht)
+    if not all(torch.equal(x, y) for x, y in zip(dl, dl2)):
+        bad.append("two identical card decode runs differ")
+    moved = rerouted(hlog, dlog)
+    per_step = len(moved) // steps if moved else 0
+    gone, derr, firm, n_dec = set(), 0.0, 0, 0
+    for pos in range(steps):
+        for t in moved[pos * per_step:(pos + 1) * per_step]:
+            gone |= set(t.nonzero().ravel().tolist())
+            n_dec += int(t.sum())
+        keep = [r for r in range(b) if r not in gone]
+        if not keep:
+            break
+        want, got = hl[pos][keep], dl[pos][keep]
+        derr = max(derr, rel_err(got, want))
+        top2 = want.sort(-1).values[:, -2:]
+        sure = (top2[:, 1] - top2[:, 0]) > tol["out"] * float(
+            want.abs().max())
+        if not torch.equal(got.argmax(-1)[sure], ht[pos][keep][sure]):
+            bad.append(f"decode step {pos}: argmax differs")
+        firm += int(sure.sum())
+    if derr > tol["out"]:
+        bad.append(f"decode logits rel err {derr:.2e}")
+
+    # kvquant: the host's cache quantized on both devices
+    name = "k" if "k" in hcache else "ckv"
+    kv = hcache[name][0]
+    kv = kv if kv.dim() == 4 else kv[:, :, None, :]
+    qh, sh = kq.quantize_kv(kv)
+    qd, sd = kq.quantize_kv(kv.to(dev))
+    if not (torch.equal(qh, qd.cpu()) and torch.equal(sh, sd.cpu())):
+        bad.append("kvquant int8 or scales differ between card and host")
+    rt_err = float(((kq.dequantize_kv(qh, sh) - kv.float()).abs()
+                    - sh * (0.5 + 1e-5)).max())
+    layer = {"k_q": qh, "k_s": sh, "v_q": qh, "v_s": sh}
+    q = torch.randn((b, kv.shape[2] * 2, kv.shape[3]),
+                    generator=torch.Generator().manual_seed(0))
+    ah = kq.quant_decode_attention(q, layer, steps)
+    ad = kq.quant_decode_attention(q.to(dev), {k: v.to(dev) for k, v in
+                                               layer.items()}, steps)
+    qerr = rel_err(ad, ah)
+    if rt_err > 0 or qerr > 1e-4:
+        bad.append(f"kvquant round trip {rt_err:.2e}, attention {qerr:.2e}")
+
+    # two identical card train steps
+    step = make_train_step(loss_fn, AdamWConfig(lr=1e-3, warmup_steps=1))
+    sts = [init_opt_state(m) for m in cards]
+    for m, st in zip(cards, sts):
+        step(m, st, bd)
+    if not all(torch.equal(x, y) for x, y in zip(
+            leaves(cards[0].to_tree()) + leaves(sts[0]["m"])
+            + leaves(sts[0]["v"]), leaves(cards[1].to_tree())
+            + leaves(sts[1]["m"]) + leaves(sts[1]["v"]))):
+        bad.append("two identical card train steps differ")
+    grads = (f"loss {errs['loss']:.2e} grads (max over {len(leaves(gc))} "
+             f"leaves) {errs['grads']:.2e}" if "loss" in errs else
+             f"loss and grads not compared ({n_fwd} tokens routed "
+             f"differently)")
+    line = (f"[3h card vs cpu {arch} {cdt}] smoke, batch {b} x {s}: rel "
+            f"err logits {errs['logits']:.2e} (rows {rows} left out: "
+            f"routed differently), {grads}; {steps} decode steps: logits "
+            f"{derr:.2e}, argmax equal at the {firm} firm positions, "
+            f"{n_dec} token-steps routed differently; kvquant int8 and "
+            f"scales bit-equal, attention {qerr:.2e}; two identical card "
+            f"decode runs and train steps bit-equal")
+    return line, bad
+
+
+def weight_bytes(model, batch: int) -> int:
+    """The bytes a decode step must read of the weights, once each at
+    their stored dtype: the embedding's B gathered rows and every other
+    leaf whole (the dense MoE products read every expert)."""
+    return sum((batch * p.shape[1] if name == "embed" else p.numel())
+               * p.element_size() for name, p in model.named_parameters())
+
+
+def lm_phase():
+    """Phase 3h: the LM family on the card.
+
+    (a) ``lm_vs_host`` for each of the five smoke configs at its own
+    compute dtype and at f32. (b) Serving at full width through
+    ``repro_torch.launch.serve``'s functions (``load``, ``generate``),
+    batch 8, prompt 64, gen 192: deepseek-7b whole, mixtral-8x7b with 16
+    of 32 layers, deepseek-v2-236b with 4 of 60 (``LM_SERVE_LAYERS``):
+    tokens/s over the wall, the median decode step (CUDA events), peak
+    ``max_memory_allocated`` and the step's byte bound (``weight_bytes``
+    over 3.35 TB/s); decode's logits against ``forward``'s for the first
+    8 positions (bf16, rows with a token routed differently left out);
+    then one ``decode_32k`` step of deepseek-7b at batch 1, ``pos`` 32767,
+    over a seeded random cache of 32,768 positions. (c) minitron-4b
+    trained through ``launch.train``'s LM branch (``model_and_data``,
+    ``make_train_step``, ``StepTimer``): 8 of 32 layers, seq 4096, batch
+    2, 5 steps, remat on: step ms, peak GB, finite losses. (d)
+    ``examples/serve_decode_torch.py`` and ``train_lm_torch.py`` on the
+    card, held to ``LM_EXAMPLE_LINES``."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="smoke_3h_")
+    try:
+        _lm_phase(tmp)
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _lm_phase(tmp):
+    import dataclasses
+    import os
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch.train import StepTimer, model_and_data
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_cache)
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step, to_device)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+
+    # ------------------------------------- (a) card against the host CPU
+    t0 = time.perf_counter()
+    for arch in LM_ARCHS:
+        own = get_spec(arch).smoke_config.compute_dtype
+        for cdt in (own, "float32"):
+            line, bad = lm_vs_host(arch, cdt, dev)
+            print(line, flush=True)
+            check(not bad, f"{arch} {cdt}: card vs CPU {bad}")
+    print(f"[3h (a)] {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ (b) serving at full width
+    b, prompt, gen = 8, 64, 192
+    for arch, n_layers in LM_SERVE_LAYERS.items():
+        full = get_spec(arch).config
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model, cache, prompts = lserve.load(cfg, b, prompt, gen, device=dev)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+        timer = StepTimer(dev, warmup=0)
+        t0 = time.perf_counter()
+        out = lserve.generate(model, cache, prompts, gen, span=timer.span)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        step_ms = [a.elapsed_time(c) for a, c in timer.marks["step"]]
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        check(out.shape == (b, gen) and bool(((out >= 0)
+                                              & (out < cfg.vocab)).all()),
+              f"{arch}: generated {tuple(out.shape)}")
+        wb = weight_bytes(model, b)
+        # where a step goes: 4 more steps (at the last position) under the
+        # profiler: the device's busy time against the steps' CUDA-event
+        # time, and the three kernels that take most of it
+        from torch.profiler import ProfilerActivity, profile
+        last = out[:, -1]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            a, c = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            for _ in range(4):
+                model.decode_step(cache, last, prompt + gen - 1)
+            c.record()
+            torch.cuda.synchronize(dev)
+        prof_ms = a.elapsed_time(c) / 4
+        busy = device_split(prof)["all"] / 4
+        top = sorted(((getattr(e, "self_device_time_total", 0) or 0, e.key)
+                      for e in prof.key_averages()), reverse=True)[:3]
+        top = ", ".join(f"{k[:48]} {us / 4e3:.2f}" for us, k in top)
+        # decode against forward for the first 8 positions: at f32 compute
+        # (the same weights) a check of the computation, at bf16 of its
+        # rounding (two bf16 paths through every layer)
+        vs = {}
+        for cdt in ("float32", cfg.compute_dtype):
+            c2 = dataclasses.replace(cfg, compute_dtype=cdt)
+            cache2 = init_cache(c2, b, 8, device=dev)
+            with RouteLog() as dlog, torch.no_grad():
+                dec = torch.stack([decode_step(model, cache2, prompts[:, p], p,
+                                               c2)[0].float()
+                                   for p in range(8)], 1)
+            with RouteLog() as flog, torch.no_grad():
+                x, _ = forward(model, prompts[:, :8], c2)
+                fwd = torch.einsum("bsd,dv->bsv", x,
+                                   model.unembed.to(x.dtype)).float()
+            # rows a token of which was routed differently, or dropped by
+            # the forward's capacity (64 tokens share it; a decode step's 8
+            # never fill it): their logits differ by design
+            gone, dropped = set(), set()
+            n_moe = len(flog.calls)
+            for layer in range(n_moe):
+                ft = flog.calls[layer].reshape(b, 8, -1)
+                dropped |= set(flog.drops[layer].reshape(b, 8).any(-1)
+                               .nonzero().ravel().tolist())
+                for p in range(8):
+                    dt = dlog.calls[p * n_moe + layer]
+                    gone |= set((ft[:, p] != dt).any(-1).nonzero()
+                                .ravel().tolist())
+            keep = [r for r in range(b) if r not in gone | dropped]
+            vs[cdt] = (rel_err(dec[keep], fwd[keep]) if keep else 0.0,
+                       f"rows {sorted(gone)} routed differently, "
+                       f"{sorted(dropped)} dropped by capacity, left out",
+                       fwd)
+            del cache2, dec, x
+        vs["bf16 vs f32"] = rel_err(vs[cfg.compute_dtype][2],
+                                    vs["float32"][2])
+        med = statistics.median(step_ms)
+        print(f"[3h serve {arch}] full width, {n_layers} of "
+              f"{full.n_layers} layers ({sum(p.numel() for p in model.parameters()):,} "
+              f"{cfg.param_dtype} parameters, init {init_s:.1f} s), batch "
+              f"{b}, prompt {prompt}, gen {gen}: {b * gen / wall:.1f} tok/s "
+              f"over the wall ({wall:.2f} s, {prompt + gen - 1} steps); "
+              f"decode step ms median {med:.3f} (CUDA events), byte bound "
+              f"{wb / 1e9:.2f} GB of weights = "
+              f"{wb / HBM_BYTES_PER_S * 1e3:.3f} ms "
+              f"({wb / HBM_BYTES_PER_S * 1e3 / med:.1%} of the median); "
+              f"profiled steps {prof_ms:.3f} ms, device busy {busy:.3f} ms "
+              f"of it (idle share {1 - busy / prof_ms:.3f}; most: {top} "
+              f"ms a step); "
+              f"peak allocated {peak:.2f} GB decoding ({init_peak:.2f} GB "
+              f"in the init's f32 draws); decode vs forward, first 8 "
+              f"positions, rel err at f32 compute {vs['float32'][0]:.2e} "
+              f"({vs['float32'][1]}), at {cfg.compute_dtype} "
+              f"{vs[cfg.compute_dtype][0]:.2e} ({vs[cfg.compute_dtype][1]};"
+              f" the bf16 forward's own distance from the f32 one "
+              f"{vs['bf16 vs f32']:.2e})", flush=True)
+        for cdt in ("float32", cfg.compute_dtype):
+            check(vs[cdt][0] <= LM_DECODE_TOL[cdt],
+                  f"{arch}: decode vs forward at {cdt}: rel err "
+                  f"{vs[cdt][0]:.2e}")
+        del vs
+        if arch == "deepseek-7b":
+            cache = None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            big = model.init_cache(1, 32768)
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            for k in big:
+                for i in range(big[k].shape[0]):
+                    big[k][i].normal_(generator=g)
+            tok = prompts[:1, 0]
+            a, c = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            ms = []
+            for _ in range(4):
+                a.record()
+                lg32 = model.decode_step(big, tok, 32767)[0]
+                c.record()
+                torch.cuda.synchronize(dev)
+                ms.append(a.elapsed_time(c))
+            cb = sum(v.numel() * v.element_size() for v in big.values())
+            wb1 = weight_bytes(model, 1)
+            check(bool(torch.isfinite(lg32).all()), "decode_32k: logits")
+            print(f"[3h decode_32k deepseek-7b] batch 1 (cut from 128), pos "
+                  f"32767 over a seeded random cache of 32,768 positions "
+                  f"({cb / 1e9:.2f} GB bf16): step ms {ms[1:]} (CUDA events, "
+                  f"after 1 warm-up), byte bound {(wb1 + cb) / 1e9:.2f} GB "
+                  f"(weights + cache) = "
+                  f"{(wb1 + cb) / HBM_BYTES_PER_S * 1e3:.3f} ms; peak "
+                  f"allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
+                  f" GB", flush=True)
+            del big
+        del model, cache, prompts
+        torch.cuda.empty_cache()
+
+    # ------------------------------------ (c) training at full width
+    cfg = dataclasses.replace(get_spec("minitron-4b").config, n_layers=8)
+    batch, seq, n_steps = 2, 4096, 5
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, loss_fn, batch_fn = model_and_data(cfg, batch, 0, dev, seq=seq)
+    step = make_train_step(loss_fn, AdamWConfig(lr=1e-4, warmup_steps=1,
+                                                total_steps=n_steps))
+    st = init_opt_state(model)
+    timer, losses = StepTimer(dev, warmup=2), []
+    for s in range(n_steps):
+        with timer.span("build"):
+            bs = batch_fn(s)
+        with timer.span("h2d"):
+            bs = to_device(bs, dev)
+        with timer.span("step"):
+            _, st, m = step(model, st, bs)
+        losses.append(m["loss"])
+    t = timer.summary(batch)
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"minitron-4b losses {losses}")
+    n_par = sum(p.numel() for p in model.parameters())
+    # operations a step must do, as the reference computes them: bf16
+    # products of the layers (forward, remat's recompute, backward x2),
+    # f32 attention scores and values over every chunk (causal masking
+    # computes them all) and f32 vocab logits (forward, the chunk's
+    # recompute, backward x2)
+    n_tok = batch * seq
+    bf16_ops = 8 * sum(p.numel() for p in model.layers.parameters()) * n_tok
+    f32_ops = 4 * (4 * batch * cfg.n_heads * seq ** 2 * cfg.d_head
+                   * cfg.n_layers + 2 * n_tok * cfg.d_model * cfg.vocab)
+    bound = (bf16_ops / PEAK_FLOPS["bfloat16"]
+             + f32_ops / PEAK_FLOPS["float32"]) * 1e3
+    print(f"[3h train minitron-4b] full width, 8 of 32 layers "
+          f"({n_par:,} f32 parameters, {16 * n_par / 1e9:.1f} GB with "
+          f"gradients and moments), seq {seq}, batch {batch} (cut from "
+          f"256), remat on, {n_steps} steps through launch.train's "
+          f"functions: step ms median {t['step']:.3f} (CUDA events, "
+          f"{t['n']} steps after 2 warm-up), {batch * seq / t['step'] * 1e3:.0f} "
+          f"tokens/s over the device step, wall ms a step "
+          f"{t['wall_ms']:.3f}; operations bound {bound:.1f} ms "
+          f"({bf16_ops / 1e12:.1f} TFLOP bf16, {f32_ops / 1e12:.1f} TFLOP "
+          f"f32, {bound / t['step']:.1%} of the step); peak allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    del model, st, step
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ (d) the LM examples on the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), TMPDIR=tmp)
+    for name, want in LM_EXAMPLE_LINES.items():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "examples"
+                                                / f"{name}_torch.py"),
+                            *want["args"]], capture_output=True, text=True,
+                           env=env, cwd=tmp, timeout=300)
+        problems = lm_example_problems(name, r.stdout) if r.returncode == 0 \
+            else [f"rc {r.returncode}"]
+        check(not problems, f"examples/{name}_torch.py on the card: "
+                            f"{problems}\n{r.stdout[-2000:]}"
+                            f"{r.stderr[-2000:]}")
+        print(f"[3h example {name}] {time.perf_counter() - t0:.1f} s: "
+              + " | ".join(x.strip() for x in r.stdout.splitlines()[-2:]),
+              flush=True)
+    print(f"[3h] phase 3h: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 

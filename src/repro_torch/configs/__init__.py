@@ -1,25 +1,29 @@
 """Architecture registry (port of ``repro.configs``): ``--arch <id>``
-resolves here. The port holds the recsys architectures and the paper's
-own workload (``hits-webgraph``, whose ``RankingConfig`` holds the
-serving defaults); the LM and GNN architectures are not ported yet, and
-asking for one raises a ``KeyError`` that says so."""
-from . import bst, dcn_v2, dlrm_rm2, hits_webgraph, two_tower_retrieval
+resolves here. The port holds the five LM architectures, the recsys
+architectures and the paper's own workload (``hits-webgraph``, whose
+``RankingConfig`` holds the serving defaults), in the reference's order.
+The GNN architecture (``gin-tu``) is not ported yet: asking for it
+raises a ``KeyError`` that says so."""
+from . import (bst, dcn_v2, deepseek_7b, deepseek_v2_236b, dlrm_rm2,
+               hits_webgraph, minitron_4b, minitron_8b, mixtral_8x7b,
+               two_tower_retrieval)
 from .base import ArchSpec
 
-_MODULES = [two_tower_retrieval, dlrm_rm2, dcn_v2, bst, hits_webgraph]
+_MODULES = [deepseek_v2_236b, mixtral_8x7b, deepseek_7b, minitron_4b,
+            minitron_8b, two_tower_retrieval, dlrm_rm2, dcn_v2, bst,
+            hits_webgraph]
 
 REGISTRY = {m.SPEC.arch_id: m.SPEC for m in _MODULES}
 ASSIGNED = [a for a in REGISTRY if a != "hits-webgraph"]
 
-# the reference's other architectures, waiting for their model families
-NOT_PORTED = ("deepseek-v2-236b", "mixtral-8x7b", "deepseek-7b",
-              "minitron-4b", "minitron-8b", "gin-tu")
+# the reference's other architecture, waiting for its model family
+NOT_PORTED = ("gin-tu",)
 
 
 def get_spec(arch_id: str) -> ArchSpec:
     if arch_id in NOT_PORTED:
-        raise KeyError(f"arch '{arch_id}' is not ported yet: the LM and GNN "
-                       f"families wait for ROADMAP item 11; ported: "
+        raise KeyError(f"arch '{arch_id}' is not ported yet: the GNN family "
+                       f"waits for ROADMAP item 11 (its GNN part); ported: "
                        f"{sorted(REGISTRY)}")
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; known: {sorted(REGISTRY)}")

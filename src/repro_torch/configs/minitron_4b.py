@@ -1,0 +1,21 @@
+"""minitron-4b [arXiv:2407.14679; hf]: pruned nemotron, 32L d=3072 24H
+GQA(kv=8) d_ff=9216 (squared-ReLU, 2-matrix MLP) vocab=256000."""
+from ..models.transformer import TransformerConfig
+from .base import ArchSpec, LM_SHAPES
+
+CONFIG = TransformerConfig(
+    name="minitron-4b", n_layers=32, d_model=3072, n_heads=24,
+    n_kv_heads=8, d_head=128, d_ff=9216, vocab=256000, mlp_type="relu2",
+)
+
+SMOKE_CONFIG = TransformerConfig(
+    name="minitron-4b-smoke", n_layers=2, d_model=48, n_heads=3,
+    n_kv_heads=1, d_head=16, d_ff=96, vocab=128, mlp_type="relu2",
+    remat=False,
+)
+
+SPEC = ArchSpec(
+    arch_id="minitron-4b", family="lm", config=CONFIG,
+    smoke_config=SMOKE_CONFIG, shapes=LM_SHAPES,
+    skip_shapes={"long_500k": "pure full attention; no sub-quadratic path"},
+)

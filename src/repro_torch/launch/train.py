@@ -1,6 +1,6 @@
 """Training launcher (port of ``repro.launch.train``, on the card unless
-``--device cpu``): a recsys ``--arch`` with checkpoint/restart. Every
-flag is the reference's, plus ``--device``. A checkpoint holds
+``--device cpu``): an LM or recsys ``--arch`` with checkpoint/restart.
+Every flag is the reference's, plus ``--device``. A checkpoint holds
 ``{"params": <the reference's parameter tree>, "opt": {"m", "v",
 "step"}}`` with the reference's keys, so a checkpoint directory written
 by either package resumes in the other.
@@ -8,10 +8,12 @@ by either package resumes in the other.
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \
       --steps 20 --batch 65536
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
-      --arch bst --smoke --steps 50 --batch 8 --ckpt /tmp/bst_ckpt
+      --arch deepseek-7b --smoke --steps 50 --batch 8 --seq 64 \
+      --ckpt /tmp/lm_ckpt
 
-The LM and GNN architectures are not ported yet (ROADMAP item 11): asking
-for one exits non-zero and says so. Besides the reference's lines it
+An LM arch trains the ``Transformer`` on ``lm_batch`` (``--seq`` tokens a
+row). The GNN architecture is not ported yet (ROADMAP item 11): asking
+for it exits non-zero and says so. Besides the reference's lines it
 prints a ``timing:`` line over the steps after the first two
 (``StepTimer``): the median step time (CUDA events on the card, the
 host clock on the CPU), the wall time a step with the host's batch
@@ -94,12 +96,20 @@ class StepTimer:
         return out
 
 
-def model_and_data(cfg, batch: int, seed: int = 0, device="cuda"):
-    """(model, loss_fn(model, batch), batch_fn(step)) of a recsys config:
-    the reference's data config per architecture."""
+def model_and_data(cfg, batch: int, seed: int = 0, device="cuda",
+                   seq: int = 64):
+    """(model, loss_fn(model, batch), batch_fn(step)) of an LM or recsys
+    config: the reference's data config per architecture (``seq`` tokens
+    a row for an LM)."""
     from ..models import recsys as rs
-    from ..train import (DataConfig, bst_batch, recsys_batch,
+    from ..models.transformer import Transformer, TransformerConfig
+    from ..train import (DataConfig, bst_batch, lm_batch, recsys_batch,
                          twotower_batch)
+    if isinstance(cfg, TransformerConfig):
+        dc = DataConfig(kind="lm", global_batch=batch, seq_len=seq,
+                        vocab=cfg.vocab)
+        return (Transformer(cfg, seed=seed, device=device),
+                lambda m, b: m.loss(b), lambda s: lm_batch(dc, s))
     model = rs.build(cfg, seed=seed, device=device)
     if isinstance(cfg, rs.TwoTowerConfig):
         dc = DataConfig(kind="twotower", global_batch=batch)
@@ -128,9 +138,11 @@ def restore(ckpt_dir: str, model, opt_state):
     """Load the newest checkpoint of ``ckpt_dir`` into ``model`` and
     ``opt_state`` (in place); returns its step."""
     from .. import checkpoint as ck
+    from ..runtime import host_array
     from ..tree import leaves, tree_map
     f32 = lambda _t: np.zeros((), np.float32)  # noqa: E731 (dtype only)
-    like = {"params": tree_map(f32, model.to_tree()),
+    own = lambda t: host_array(t.reshape(-1)[:1])  # noqa: E731 (bf16: |V2)
+    like = {"params": tree_map(own, model.to_tree()),
             "opt": {"m": tree_map(f32, opt_state["m"]),
                     "v": tree_map(f32, opt_state["v"]),
                     "step": np.zeros((), np.int32)}}
@@ -173,11 +185,12 @@ def main(argv=None):
         spec = get_spec(args.arch)
     except KeyError as e:
         raise SystemExit(f"launch.train: {e.args[0]}")
-    if spec.family != "recsys":
+    if spec.family not in ("lm", "recsys"):
         raise SystemExit("use launch.rank for the ranking workload")
     dev = resolve_device(args.device)
     cfg = spec.smoke_config if args.smoke else spec.config
-    model, loss, batch_fn = model_and_data(cfg, args.batch, 0, dev)
+    model, loss, batch_fn = model_and_data(cfg, args.batch, 0, dev,
+                                           seq=args.seq)
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                           total_steps=args.steps)

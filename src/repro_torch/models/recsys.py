@@ -38,48 +38,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..runtime import resolve_device
-from ..tree import tree_map
-from .layers import chunked_attention
+from .layers import chunked_attention, dense_mlp
+from .params import Group, ParamTree
+from .params import generator as _gen
+from .params import normal as _normal
 from .sharding import DP, shard_hint
 
 
 # ------------------------------------------------------------ the modules
-class ParamTree(nn.Module):
-    """A module that reads as the reference's parameter dict: ``p[key]``
-    is the child or parameter named ``key``; ``nn.ParameterList`` children
-    stand for the reference's tuples."""
-
-    def __getitem__(self, key):
-        return getattr(self, key)
-
-    def to_tree(self):
-        """The reference's nested dict/tuple of this module's tensors."""
-        out = {}
-        for name, child in self.named_children():
-            if isinstance(child, nn.ParameterList):
-                out[name] = tuple(child)
-            else:
-                out[name] = child.to_tree()
-        for name, p in self.named_parameters(recurse=False):
-            out[name] = p
-        return out
-
-    @torch.no_grad()
-    def params_from_reference(self, tree):
-        """Copy a tree of arrays or tensors (the reference's structure: a
-        dict of arrays, tuples and dicts; another module's ``to_tree()``)
-        into the parameters; returns self."""
-        def put(p, x):
-            x = x.detach() if torch.is_tensor(x) else \
-                torch.as_tensor(np.asarray(x))
-            if tuple(x.shape) != tuple(p.shape):
-                raise ValueError(f"shape {tuple(x.shape)} for a parameter "
-                                 f"of shape {tuple(p.shape)}")
-            p.copy_(x)
-        tree_map(put, self.to_tree(), tree)
-        return self
-
-
 class MLP(ParamTree):
     """``{"w": (...), "b": (...)}``."""
 
@@ -87,28 +53,6 @@ class MLP(ParamTree):
         super().__init__()
         self.w = nn.ParameterList([nn.Parameter(x) for x in ws])
         self.b = nn.ParameterList([nn.Parameter(x) for x in bs])
-
-
-class Group(ParamTree):
-    """A dict of parameters and subtrees (``blocks``, the model root)."""
-
-    def __init__(self, **items):
-        super().__init__()
-        for k, x in items.items():
-            setattr(self, k, x if isinstance(x, nn.Module)
-                    else nn.Parameter(x))
-
-
-def _gen(seed: int, device):
-    g = torch.Generator(device=device)
-    g.manual_seed(int(seed))
-    return g
-
-
-def _normal(gen, shape, scale, device):
-    """``scale * N(0, 1)`` in f32, drawn on ``device``."""
-    return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32).mul_(float(scale))
 
 
 def _mlp_params(gen, dims, device) -> MLP:
@@ -122,12 +66,7 @@ def _mlp_params(gen, dims, device) -> MLP:
 
 
 def _mlp_apply(p, x, act=F.relu, final_act=False):
-    n = len(p["w"])
-    for i in range(n):
-        x = x @ p["w"][i] + p["b"][i]
-        if i < n - 1 or final_act:
-            x = act(x)
-    return x
+    return dense_mlp(x, p["w"], p["b"], act=act, final_act=final_act)
 
 
 class RecsysModel(Group):

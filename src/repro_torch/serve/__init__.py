@@ -1,6 +1,8 @@
 from .backends import (BACKENDS, BsrSweepBackend, DenseSweepBackend,
                        ShardedSweepBackend, SweepBackend, SweepBatch,
                        make_backend, select_backend, shared_mesh)
+from .kvquant import (dequantize_kv, init_quant_cache, quant_decode_attention,
+                      quantize_kv, update_quant_cache)
 from .pipeline import PipelineJob, ServePipeline
 from .plans import (BsrPlan, DensePlan, PlanCache, ShardedPlan, SweepPlan,
                     structure_key, topology_key)
@@ -11,6 +13,8 @@ from .telemetry import (Counter, Gauge, Histogram, MetricsRegistry,
                         StatsServer)
 
 __all__ = [
+    "dequantize_kv", "init_quant_cache", "quant_decode_attention",
+    "quantize_kv", "update_quant_cache",
     "QueryResult", "RankService", "RankServiceConfig",
     "RankQueue", "QueueTicket", "CacheSpill", "PlanSpill",
     "ServePipeline", "PipelineJob",

@@ -92,7 +92,8 @@ def _update_leaf(p, g, m, v, lr, bc1, bc2, cfg: AdamWConfig):
     """One leaf's AdamW step, in place, chunk by chunk:
     m = b1*m + (1-b1)*g; v = b2*v + (1-b2)*g²; delta = (m/bc1) /
     (sqrt(v/bc2) + eps) + wd*p; p = p - lr*delta."""
-    pf, gf, mf, vf = (t.view(-1) for t in (p, g, m, v))
+    pf, mf, vf = (t.view(-1) for t in (p, m, v))
+    gf = g.reshape(-1)  # a gradient may be strided (unembed's is transposed)
     for s in range(0, pf.numel(), CHUNK):
         sl = slice(s, s + CHUNK)
         pc, gc, mc, vc = pf[sl], gf[sl], mf[sl], vf[sl]

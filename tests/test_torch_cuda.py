@@ -1012,3 +1012,52 @@ def test_train_launcher_on_card(cuda, tmp_path):
                        cwd=tmp_path, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "resumed from step 8" in r.stdout and "done: 2 steps" in r.stdout
+
+
+# ------------------------------------------------------- the LM family
+LM_ARCHS = ("deepseek-v2-236b", "mixtral-8x7b", "deepseek-7b",
+            "minitron-4b", "minitron-8b")
+
+
+def chip_smoke():
+    """``chip_smoke.py`` as a module: phase 3h's checks live there."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("own", [True, False])
+def test_lm_card_matches_host(arch, own, cuda):
+    """Phase 3h (a) at smoke size (``chip_smoke.lm_vs_host``), at the
+    config's own compute dtype and at f32: forward logits, loss,
+    gradients and 30 decode steps against the host CPU, ``kvquant`` of
+    the host's cache bit-equal on the card, two identical card decode
+    runs and train steps (MoE dispatch and combine included) bit-equal."""
+    from repro_torch.configs import get_spec
+    cdt = get_spec(arch).smoke_config.compute_dtype if own else "float32"
+    line, bad = chip_smoke().lm_vs_host(arch, cdt, cuda)
+    assert not bad, line
+
+
+@pytest.mark.cuda
+def test_serve_launcher_on_card(cuda, tmp_path):
+    """``python -m repro_torch.launch.serve --smoke`` on the card names
+    the card in its throughput line."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--arch", "mixtral-8x7b", "--smoke"],
+                       capture_output=True, text=True, env=env,
+                       cwd=tmp_path, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert f"({torch.cuda.get_device_name(cuda)})" in r.stdout, r.stdout

@@ -9,6 +9,8 @@ retrieval prior raising the mean authority of the top-20. The JAX
 package's own ``examples/<name>.py``, run on the CPU, is held to the
 same checker, so ``EXAMPLE_LINES`` (which the card, having no JAX, is
 held to) are the reference's lines and not only numbers in a script.
+The two LM examples (``serve_decode``, ``train_lm``) are held, port and
+reference alike, to their lines' formats (``LM_EXAMPLE_LINES``).
 """
 import importlib.util
 import os
@@ -49,6 +51,21 @@ def test_reference_example_gives_the_pinned_lines(name, tmp_path):
     assert chip_smoke.example_problems(name, out) == [], out
 
 
+@pytest.mark.parametrize("name", sorted(chip_smoke.LM_EXAMPLE_LINES))
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_lm_example_gives_the_reference_lines(name, pkg, tmp_path):
+    """The LM examples (``serve_decode``, ``train_lm``): the port on the CPU
+    and the JAX package's own example pass the same checker
+    (``chip_smoke.lm_example_problems``: formats, sizes, finite and
+    falling losses; init and batches are each package's own draws)."""
+    args = chip_smoke.LM_EXAMPLE_LINES[name]["args"]
+    if pkg == "port":
+        out = _run(f"{name}_torch.py", tmp_path, "--device", "cpu", *args)
+    else:
+        out = _run(f"{name}.py", tmp_path, *args)
+    assert chip_smoke.lm_example_problems(name, out) == [], out
+
+
 def test_checker_rejects_a_wrong_line():
     """The checker is not vacuous: a changed iteration count or a lost
     ticket is reported."""
@@ -63,3 +80,9 @@ def test_checker_rejects_a_wrong_line():
            " popular repeats -> ['hit', 'hit', 'hit', 'hit'] (4 served")
     assert any("tickets" in p for p in
                chip_smoke.example_problems("async_ranking_clients", out))
+    out = ("model: 8.1M params (demo-20m)\nstep    0 loss 9.1 (1 steps/s)\n"
+           "step   20 loss 9.2 (1 steps/s)")
+    assert chip_smoke.lm_example_problems("train_lm", out)
+    out = ("served batch=8: 192 tokens in 1.0s (192.0 tok/s, rolling SWA "
+           "cache len=16)\nsample: [1, 2, 3, 4, 5] -> [1] ")
+    assert chip_smoke.lm_example_problems("serve_decode", out)

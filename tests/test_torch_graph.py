@@ -115,7 +115,7 @@ def test_port_imports_neither_jax_nor_repro():
     interpreter."""
     mods = []
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
-    assert len(examples) == 5, examples
+    assert len(examples) == 7, examples
     for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                               ROOT / "chip_ablation.py"] \
             + examples:

@@ -5,9 +5,12 @@ plan and spill counters and the same top-k; the queued frontend answers
 ``/healthz``, rolls a ``--delta-file`` on SIGHUP and drains to exit 0 on
 SIGTERM; and its helpers (``zipf_query_stream``, ``load_delta_file``,
 ``roll_delta``) match the reference's. ``python -m
-repro_torch.launch.train``: each recsys ``--arch --smoke``,
-``--ckpt``/``--resume``, checkpoints that cross packages both ways, and
-the refusals.
+repro_torch.launch.train``: each recsys ``--arch --smoke`` and an LM
+one, ``--ckpt``/``--resume``, checkpoints that cross packages both ways
+(recsys and LM), and the refusals. ``python -m
+repro_torch.launch.serve``: each LM ``--arch --smoke`` prints the
+reference's three kinds of line, and a non-LM arch is refused as the
+reference refuses it.
 
 Every wait on the subprocess has a timeout, so a hang fails the test.
 """
@@ -401,20 +404,142 @@ def test_train_checkpoint_crosses_packages(writer, tmp_path):
     assert "resumed from step 6" in out and "done: 3 steps" in out
 
 
-def test_train_launcher_refusals(tmp_path, monkeypatch):
-    """An LM or GNN arch exits non-zero, saying it is not ported yet
-    (ROADMAP item 11); the ranking arch is sent to launch.rank as the
-    reference does; without ``--device cpu`` and no card it raises."""
+def test_train_launcher_refusals(tmp_path, monkeypatch, capsys):
+    """The GNN arch exits non-zero, saying it is not ported yet (ROADMAP
+    item 11), while an LM arch (ported) trains; the ranking arch is sent
+    to launch.rank as the reference does; without ``--device cpu`` and no
+    card it raises."""
+    from repro_torch.launch import train as ptrain
     for arch in ("deepseek-7b", "gin-tu"):
+        if arch == "deepseek-7b":
+            ptrain.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--steps", "1", "--batch", "2", "--seq", "8"])
+            assert "done: 1 steps" in capsys.readouterr().out
+            continue
         r = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.train", "--arch",
              arch, "--smoke", "--device", "cpu"], capture_output=True,
             text=True, env=env(), cwd=tmp_path, timeout=WAIT)
         assert r.returncode != 0 and "not ported yet" in r.stderr \
             and "item 11" in r.stderr, r.stderr
-    from repro_torch.launch import train as ptrain
     with pytest.raises(SystemExit, match="launch.rank"):
         ptrain.main(["--arch", "hits-webgraph", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         ptrain.main(["--arch", "bst", "--smoke", "--steps", "1"])
+
+
+# --------------------------------------------------------- the LM family
+LM_ARCHS = ("deepseek-v2-236b", "mixtral-8x7b", "deepseek-7b",
+            "minitron-4b", "minitron-8b")
+SERVE_LINES = (r"arch=(\S+) batch=4 prompt=8 gen=16 tokens",
+               r"throughput: [0-9.]+ tok/s \((.+)\)",
+               r"  seq0: (\[.*\]) -> (\[.*\])",
+               r"  seq1: (\[.*\]) -> (\[.*\])")
+
+
+def serve_lines(out, name, vocab):
+    """The reference's three kinds of line: the shape, the throughput, two
+    sample sequences (8 prompt tokens -> 16 generated, all in vocab)."""
+    lines = out.splitlines()
+    assert len(lines) == 4, out
+    ms = [re.fullmatch(p, x) for p, x in zip(SERVE_LINES, lines)]
+    assert all(ms), out
+    assert ms[0].group(1) == name
+    for m in ms[2:]:
+        prompt, gen = ast.literal_eval(m.group(1)), \
+            ast.literal_eval(m.group(2))
+        assert len(prompt) == 8 and len(gen) == 16
+        assert all(0 <= t < vocab for t in prompt + gen)
+    return ms[1].group(1)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_serve_launcher_each_lm_arch(arch, tmp_path):
+    """``python -m repro_torch.launch.serve --arch <lm> --smoke --device
+    cpu`` prints the reference's lines (the reference's own launcher is
+    held to the same format for its default arch)."""
+    from repro_torch.configs import get_spec
+    cfg = get_spec(arch).smoke_config
+    out = launch("repro_torch.launch.serve", "--arch", arch, "--smoke",
+                 "--device", "cpu", cwd=tmp_path)
+    assert serve_lines(out, cfg.name, cfg.vocab) == "host CPU"
+    if arch == "mixtral-8x7b":
+        ref = launch("repro.launch.serve", "--arch", arch, "--smoke",
+                     cwd=tmp_path)
+        assert serve_lines(ref, cfg.name, cfg.vocab) == "host devices"
+
+
+def test_serve_launcher_refusals(tmp_path):
+    """A recsys arch is refused with the reference's message; the GNN
+    arch is not ported yet."""
+    for arch, msg in (("bst", "decode serving applies to LM archs"),
+                      ("gin-tu", "not ported yet")):
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             arch, "--smoke", "--device", "cpu"], capture_output=True,
+            text=True, env=env(), cwd=tmp_path, timeout=WAIT)
+        assert r.returncode != 0 and msg in r.stderr, r.stderr
+
+
+LM_TRAIN = ["--arch", "deepseek-7b", "--smoke", "--steps", "6", "--batch",
+            "4", "--seq", "16", "--ckpt-every", "3"]
+
+
+def lm_like():
+    import jax
+    from repro.configs import get_spec as ref_spec
+    from repro.models import transformer as rt
+    from repro.train import init_opt_state as ref_init_opt
+    params = rt.init_params(ref_spec("deepseek-7b").smoke_config,
+                            jax.random.key(9))
+    return {"params": params, "opt": ref_init_opt(params)}
+
+
+@pytest.mark.parametrize("writer", ["repro", "repro_torch"])
+def test_lm_train_checkpoint_crosses_packages(writer, tmp_path):
+    """``launch.train --arch deepseek-7b --smoke``: the reference's step
+    lines; the checkpoint holds the reference's ``{"params", "opt"}``
+    keys, shapes and dtypes; a checkpoint written by either package
+    restores in the other bit for bit, and the other launcher resumes
+    from it."""
+    from repro.checkpoint import checkpoint as rck
+    from repro_torch.checkpoint import checkpoint as pck
+    from repro_torch.configs import get_spec
+    from repro_torch.launch import train as ptrain
+    from repro_torch.train import init_opt_state
+    ck = str(tmp_path / "ck")
+    dev = ["--device", "cpu"] if writer == "repro_torch" else []
+    out = launch(f"{writer}.launch.train", *LM_TRAIN, "--ckpt", ck, *dev,
+                 cwd=tmp_path)
+    steps = re.findall(r"step\s+(\d+) loss (\S+) lr (\S+) gnorm (\S+)", out)
+    assert [int(s[0]) for s in steps] == [0, 5]
+    assert all(np.isfinite(float(s[1])) for s in steps)
+    arrays = ckpt_arrays(ck, 6)
+    want = rck._flatten(lm_like())
+    assert list(arrays) == list(want)
+    for k in want:
+        assert arrays[k].shape == want[k].shape and \
+            arrays[k].dtype == want[k].dtype, k
+    if writer == "repro":
+        cfg = get_spec("deepseek-7b").smoke_config
+        model, _loss, _bf = ptrain.model_and_data(cfg, 4, seed=5,
+                                                  device="cpu", seq=16)
+        opt = init_opt_state(model)
+        assert ptrain.restore(ck, model, opt) == 6
+        flat = pck._flatten(ptrain.checkpoint_tree(model, opt))
+        other = ["repro_torch.launch.train", "--device", "cpu"]
+    else:
+        tree, step, _ = rck.restore(ck, lm_like())
+        assert step == 6
+        flat = {k: np.asarray(v) for k, v in rck._flatten(tree).items()}
+        other = ["repro.launch.train"]
+    assert list(flat) == list(arrays)
+    for k in arrays:
+        assert np.array_equal(flat[k], arrays[k]), k
+    out = launch(other[0], *LM_TRAIN[:3], "--steps", "9",
+                 *LM_TRAIN[5:], "--ckpt", ck, "--resume", *other[1:],
+                 cwd=tmp_path)
+    assert "resumed from step 6" in out and "done: 3 steps" in out
+    if writer == "repro":
+        assert "timing: step ms median" in out
