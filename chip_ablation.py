@@ -3,6 +3,7 @@
 
     python3 chip_ablation.py
     python3 chip_ablation.py --k2-only [--src DIR]
+    python3 chip_ablation.py --gnn-only [--src DIR]
 
 Each kernel is timed beside variants of its own source with one phase cut
 out. A variant is the source with a few lines replaced (``K1_VARIANTS``,
@@ -33,6 +34,14 @@ one in one call, for example the parent unpacked with ``git archive``
 into ``build/parent``:
 
     python3 chip_ablation.py --k2-only --src build/parent/src
+
+``--gnn-only`` times the GNN aggregation's forward at ogb_products'
+published counts (2,449,029 nodes, 61,859,140 seeded random edges, F 64
+f32; CUDA events, the mean of 3 calls): the gather into K3's slots done
+five bit-equal ways (``index_select`` by int32 rows, the port's, and by
+int64 rows, advanced indexing, ``F.embedding``, ``index_select`` of the
+rows viewed as 16-byte complex128 values), and one K3 launch at tile_e
+256 (the port's) and 512 with its workspace.
 """
 import argparse
 import ctypes
@@ -133,6 +142,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--k2-only", action="store_true",
                     help="time only a K2 call and its sweep epilogue")
+    ap.add_argument("--gnn-only", action="store_true",
+                    help="time only the GNN aggregation's gather and K3 "
+                    "at ogb_products' counts")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch to time")
     opts = ap.parse_args()
@@ -154,6 +166,10 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
+    if opts.gnn_only:
+        build.build_all()
+        gnn_rows(torch, torch.device("cuda", 0))
+        return
     if opts.k2_only:
         build.build_all()
         h0, ca, ch, m, plan = main_path_inputs(
@@ -251,6 +267,66 @@ def main():
         print(f"[{case}] {name}: device ms " + " ".join(f"{t:.4f}"
                                                         for t in ts))
     k2_rows(torch, K, build, libs, plan, h0, ca, ch, m, device_ms)
+
+
+def gnn_rows(torch, dev, f=64):
+    """``--gnn-only``: one line of the gather's ways and one of K3 at
+    tile_e 256 and 512 (see the module docstring)."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.kernels.ops import EdgeLayouts
+    from repro_torch.kernels.seg_matmul import seg_matmul, seg_scratch_sizes
+
+    def ms(fn, n=3):
+        fn()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize(dev)
+        return a.elapsed_time(b) / n
+
+    shape = GNN_SHAPES["ogb_products"]
+    n, e = shape["n_nodes"], shape["n_edges"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src, dst = (torch.randint(0, n, (e,), generator=gen, device=dev,
+                              dtype=torch.int32) for _ in range(2))
+    h = torch.randn((n, f), generator=gen, device=dev)
+    lay = EdgeLayouts.build(src, dst, n)
+    rows = lay.fwd.rows
+    rows_l = rows.long()
+    ref = h.index_select(0, rows)
+    ways = {"index_select int32": lambda: h.index_select(0, rows),
+            "index_select int64": lambda: h.index_select(0, rows_l),
+            "h[rows]": lambda: h[rows_l],
+            "F.embedding": lambda: F.embedding(rows_l, h),
+            "complex128 view": lambda: h.view(torch.complex128)
+            .index_select(0, rows).view(torch.float32)}
+    out = []
+    for name, fn in ways.items():
+        if not torch.equal(fn(), ref):
+            sys.exit(f"FAIL: gather {name} differs from index_select")
+        out.append(f"{name} {ms(fn):.3f}")
+    del ref, rows_l
+    print(f"[gnn gather ogb_products N={n:,} E={e:,} F={f}] ms (events): "
+          + "; ".join(out), flush=True)
+    k3 = []
+    for te in (256, 512):
+        lt = lay if te == 256 else EdgeLayouts.build(src, dst, n, tile_e=te)
+        fw = lt.fwd
+        m = fw.messages(h)
+        t = ms(lambda: seg_matmul(fw.blkid, m, fw.off, fw.valid, fw.n_blocks,
+                                  bs=fw.bs, tile_ptr=fw.tile_ptr,
+                                  scratch=lt.scratch))
+        ws = seg_scratch_sizes(fw.blkid.shape[0], fw.n_blocks, fw.bs, f,
+                               4)[0]
+        k3.append(f"tile_e {te}: {t:.3f} ms, e_pad {fw.rows.shape[0]:,}, "
+                  f"workspace {ws / 1e9:.2f} GB")
+        del lt, fw, m
+        torch.cuda.empty_cache()
+    print("[gnn K3 ogb_products] a launch (events): " + "; ".join(k3),
+          flush=True)
 
 
 def main_path_inputs(torch, g, RankService, RankServiceConfig, PipelineJob,

@@ -91,8 +91,18 @@ Phases (any failure exits non-zero and prints no result line):
    config and batch 65,536 (bst checkpointed and resumed), dlrm-rm2's
    step split, the two-tower trained in process; retrieval at the full
    two-tower config over 1M candidates with the accelerated-HITS prior;
+3h. the LM family (``lm_phase``): the five smoke configs against the host
+   CPU, decode at full width, minitron-4b training, the LM examples;
+3i. the GNN family (``gnn_phase``): gin-tu's smoke config against the
+   host CPU in its three modes; the aggregation (K3 forward and backward)
+   bit-equal to its plain version at Cora's shape, ogb_products (its
+   first and last blocks), a minibatch_lg block and a molecule batch;
+   full-graph training at ogb_products' published counts (K3 two
+   launches a layer a step, counted), sampled minibatch_lg steps and
+   batched molecule steps, and ``launch.train --arch gin-tu``;
 4. a ``{"kernels": [...]}`` line (K1's entry carries the whole-graph
-   path's numbers under ``hits_sweep_bsr``), then the contract's last line.
+   path's numbers under ``hits_sweep_bsr``, K3's the GNN's under
+   ``gnn``), then the contract's last line.
 
 It imports torch, numpy and the port only. K1's and K3's ``ms`` is the
 kernel's device time per launch and the epilogue's the device time of
@@ -318,6 +328,50 @@ def check(ok, msg):
         fail(msg)
 
 
+def ms(fn, n):
+    """Mean ms per call of fn over n calls after two warm-up calls (CUDA
+    events: the host's time to launch included)."""
+    import torch
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def device_ms(fn, n, kernel=None, per_call=False):
+    """Mean device ms of one launch of the kernels whose names hold
+    ``kernel`` over n calls of fn after a warm-up, from the profiler's
+    device times: the kernels' own time, apart from the host's time to
+    launch them (``per_call``: their total per call of fn). With
+    ``kernel`` None: the device time of every kernel and copy of a call,
+    per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel is None or kernel in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            t = t if t is not None else e.self_cuda_time_total
+            us += t
+            count += e.count if t else 0
+    if kernel is None or per_call:
+        count = n
+    return us / 1e3 / count if count else float("nan")
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         fail(f"{ROOT} is not a checkout of the repo (src/repro_torch missing)")
@@ -335,6 +389,7 @@ def main():
                                    RankServiceConfig)
     from repro_torch.serve.pipeline import PipelineJob
     from repro_torch.graph import paper_dataset
+    from torch.profiler import ProfilerActivity, profile
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -355,46 +410,6 @@ def main():
         for line in build.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}]", line.strip())
-
-    def ms(fn, n):
-        """Mean ms per call of fn over n calls after two warm-up calls."""
-        fn()
-        fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), \
-            torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / n
-
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_ms(fn, n, kernel=None, per_call=False):
-        """Mean device ms of one launch of the kernels whose names hold
-        ``kernel`` over n calls of fn after a warm-up, from the profiler's
-        device times: the kernels' own time, apart from the host's time to
-        launch them (``per_call``: their total per call of fn). With
-        ``kernel`` None: the device time of every kernel and copy of a call,
-        per call."""
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us, count = 0.0, 0
-        for e in prof.key_averages():
-            if kernel is None or kernel in e.key:
-                t = getattr(e, "self_device_time_total", None)
-                t = t if t is not None else e.self_cuda_time_total
-                us += t
-                count += e.count if t else 0
-        if kernel is None or per_call:
-            count = n
-        return us / 1e3 / count if count else float("nan")
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -758,9 +773,9 @@ def main():
         t_lib = ms(lambda: zeros.clone().index_add_(0, dst_d, raw), 20)
         t_lib_dev = device_ms(
             lambda: zeros.clone().index_add_(0, dst_d, raw), 20)
-        # the kernel reads off/valid of every slot and the message row of
-        # each valid slot only (padded slots are skipped), writes y once
-        moved = (g.n_edges * f * m.element_size() + 8 * e_pad
+        # the function reads each edge's message row and destination
+        # index once and writes y once
+        moved = (g.n_edges * f * m.element_size() + 4 * g.n_edges
                  + nbytes(y))
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
         t_ops = g.n_edges * f / PEAK_FLOPS["float32"] * 1e3
@@ -1049,6 +1064,9 @@ def main():
     # ----------------------------------------------- 3h. the LM family
     lm_phase()
 
+    # ----------------------------------------------- 3i. the GNN family
+    gnn = gnn_phase()
+
     # ---------------------------------------------------- 4. result lines
     kernels = [
         dict(name="bsr_spmm", route="cuda",
@@ -1082,13 +1100,20 @@ def main():
         dict(name="seg_matmul", route="cuda",
              source="src/repro_torch/kernels/csrc/seg_matmul.cu",
              replaces="src/repro/kernels/seg_matmul.py:25",
-             launches=k3_launches,
+             launches=k3_launches + gnn["launches"],
+             launches_seg_aggregate=k3_launches,
              max_abs_err=max(e["err"] for e in k3.values()),
              ms=k3[(64, "float32")]["ms"],
              plain_ms=k3[(64, "float32")]["plain_ms"],
              bound_ms=k3[(64, "float32")]["bound_ms"],
              bound_by=k3[(64, "float32")]["bound_by"],
-             library_ms=k3[(64, "float32")]["library_ms"]),
+             library_ms=k3[(64, "float32")]["library_ms"],
+             gnn=dict(shape="ogb_products", launches=gnn["launches"],
+                      ms=gnn["ogb"]["ms"], bound_ms=gnn["ogb"]["bound_ms"],
+                      library_ms=gnn["ogb"]["library_ms"],
+                      gather_ms=gnn["ogb"]["gather_ms"],
+                      step_ms=gnn["step_ms"],
+                      step_bound_ms=gnn["bound_ms"])),
     ]
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -2901,6 +2926,556 @@ def _lm_phase(tmp):
               flush=True)
     print(f"[3h] phase 3h: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+
+
+# ------------------------------------------------------ phase 3i: the GNN
+GNN_TOL = 1e-5      # card against the host CPU, of the largest magnitude
+GNN_MAX_DEG = 1024  # minibatch_lg's sampler table: neighbors kept a node
+GNN_STEPS = 5
+GNN_CHECK_BLOCKS = 256  # ogb_products: first and last blocks held to plain
+
+
+def gnn_smoke_batches(cfg, dev, seed=SEED):
+    """Host batches of the three modes at smoke size, from a CPU
+    generator, and the same on ``dev``: node (50 nodes, 200 edges, 8
+    more with dst = N that the aggregation drops, a train mask), graph
+    (8 padded graphs of 12 nodes, 30 edges) and sampled (16 seeds,
+    fanouts (5, 3) over a 300-node webgraph, the draws made on the host
+    and sampled on each device). Returns {mode: (host, on dev)}."""
+    import torch
+    from repro_torch.graph import (SamplerTables, WebGraphSpec,
+                                   generate_webgraph, sample_khop)
+    from repro_torch.train import to_device
+    gen = torch.Generator().manual_seed(seed)
+    n, e = 50, 200
+    src = torch.cat([torch.randint(0, n, (e,), generator=gen),
+                     torch.zeros(8, dtype=torch.long)])
+    dst = torch.cat([torch.randint(0, n, (e,), generator=gen),
+                     torch.full((8,), n)])
+    node = {"x": torch.randn((n, cfg.d_in), generator=gen), "src": src,
+            "dst": dst,
+            "labels": torch.randint(0, cfg.n_classes, (n,), generator=gen),
+            "train_mask": (torch.rand(n, generator=gen) > 0.3).float()}
+    g_, n_, e_ = 8, 12, 30
+    n_real = torch.randint(n_ // 2, n_ + 1, (g_,), generator=gen)
+    e_real = torch.randint(e_ // 2, e_ + 1, (g_,), generator=gen)
+    graph = {"x": torch.randn((g_, n_, cfg.d_in), generator=gen),
+             "src": (torch.rand((g_, e_), generator=gen)
+                     * n_real[:, None]).long(),
+             "dst": (torch.rand((g_, e_), generator=gen)
+                     * n_real[:, None]).long(),
+             "node_mask": torch.arange(n_)[None, :] < n_real[:, None],
+             "edge_mask": torch.arange(e_)[None, :] < e_real[:, None],
+             "labels": torch.randint(0, cfg.n_classes, (g_,), generator=gen)}
+    web = generate_webgraph(WebGraphSpec(300, 2400, 0.5, seed=5))
+    fan, seeds = (5, 3), torch.arange(16)
+    draws, b = [], len(seeds)
+    for f in fan:
+        draws.append(torch.randint(0, 2 ** 31 - 1, (b, f), generator=gen))
+        b *= f
+    feats = torch.randn((web.n_nodes, cfg.d_in), generator=gen)
+    labels = torch.randint(0, cfg.n_classes, (16,), generator=gen)
+    sampled = {}
+    for d in ("cpu", dev):
+        sub = sample_khop(SamplerTables.build(web, 32, device=d),
+                          seeds.to(d), fan, draws=draws)
+        sampled[d] = {"feats": feats.to(d)[sub.nodes.long()],
+                      "edge_src": sub.edge_src, "edge_dst": sub.edge_dst,
+                      "edge_mask": sub.edge_mask, "labels": labels.to(d),
+                      "n_seeds": sub.n_seeds}
+    for k in ("feats", "edge_src", "edge_dst", "edge_mask"):
+        check(torch.equal(sampled["cpu"][k], sampled[dev][k].cpu()),
+              f"3i: the card's sample differs from the host's in {k}")
+    return {"node": (node, to_device(node, dev)),
+            "graph": (graph, to_device(graph, dev)),
+            "sampled": (sampled["cpu"], sampled[dev])}
+
+
+def gnn_vs_host(dev, seed=SEED):
+    """Phase 3i (a): ``gin-tu``'s smoke config, the host module's
+    parameters carried to the card: each mode's loss (``node_loss``,
+    ``graph_loss``, ``sampled_loss``) and every gradient within
+    ``GNN_TOL`` of the host's, relative to the largest magnitude; on the
+    card K3 launched 2 x layers times a forward and backward
+    (``counters.seg_matmul``), nothing through its plain version; two
+    identical card train steps of each mode bit-equal. Returns (the line
+    to print, the problems)."""
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels import counters, reset_counters
+    from repro_torch.models import gnn as pg
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step, value_and_grad)
+    from repro_torch.tree import leaves
+    cfg = get_spec("gin-tu").smoke_config
+    card = torch.device(dev).type == "cuda"
+    host = pg.GIN(cfg, seed=seed, device="cpu")
+    losses = {"node": pg.node_loss, "graph": pg.graph_loss,
+              "sampled": pg.sampled_loss}
+    errs, bad, launches = {}, [], {}
+    for mode, (hb, db) in gnn_smoke_batches(cfg, dev, seed).items():
+        fn = lambda m, b, f=losses[mode]: f(m, b, cfg)  # noqa: E731
+        lh, gh = value_and_grad(fn, host, hb)
+        ms_ = [pg.GIN(cfg, seed=seed + 1, device=dev)
+               .params_from_reference(host.to_tree()) for _ in range(2)]
+        reset_counters()
+        lc, gc = value_and_grad(fn, ms_[0], db)
+        if card:
+            torch.cuda.synchronize(dev)
+        launches[mode] = counters.seg_matmul
+        errs[mode] = max(rel_err(a, b) for a, b in
+                         [(lc, lh)] + list(zip(leaves(gc), leaves(gh))))
+        if errs[mode] > GNN_TOL:
+            bad.append(f"{mode}: card vs host rel err {errs[mode]:.2e}")
+        if card and launches[mode] != 2 * cfg.n_layers:
+            bad.append(f"{mode}: K3 launched {launches[mode]} times, not "
+                       f"{2 * cfg.n_layers}")
+        step = make_train_step(fn, AdamWConfig(lr=1e-3, warmup_steps=1))
+        states = [init_opt_state(m) for m in ms_]
+        for m, st in zip(ms_, states):
+            step(m, st, db)
+        if not all(torch.equal(x, y) for x, y in zip(
+                leaves(ms_[0].to_tree()) + leaves(states[0]["m"]),
+                leaves(ms_[1].to_tree()) + leaves(states[1]["m"]))):
+            bad.append(f"{mode}: two identical card steps differ")
+    line = (f"[3i card vs cpu gin-tu-smoke] loss and every gradient, rel "
+            f"err node {errs['node']:.2e} graph {errs['graph']:.2e} sampled "
+            f"{errs['sampled']:.2e} (tol {GNN_TOL:g}); K3 launches a "
+            f"forward + backward {launches} ({cfg.n_layers} layers); two "
+            f"identical card steps of each mode bit-equal: "
+            f"{not any('identical' in x for x in bad)}")
+    return line, bad
+
+
+def flat_edges(src, dst, n):
+    """(src, dst, keep) of an edge set as the aggregation sees it: (G, E)
+    tensors flattened with node offsets g·n, the edges outside [0, n)
+    dropped (``keep``, flat, marks the edges kept)."""
+    import torch
+    src, dst = src.long(), dst.long()
+    keep = (src >= 0) & (src < n) & (dst >= 0) & (dst < n)
+    if src.dim() == 2:
+        base = torch.arange(src.shape[0], device=src.device)[:, None] * n
+        src, dst = src + base, dst + base
+    keep = keep.reshape(-1)
+    return src.reshape(-1)[keep], dst.reshape(-1)[keep], keep
+
+
+def plain_rows(side, x, w, b0, b1):
+    """Output rows [b0·bs, b1·bs) of ``side``'s sum (capped at its n_out)
+    by ``seg_matmul_plain``, from the slots of blocks b0..b1-1 alone (K3's
+    blocks are independent)."""
+    from repro_torch.kernels.seg_matmul import seg_matmul_plain
+    tp = side.tile_ptr.long()
+    t0, t1 = int(tp[b0]), int(tp[b1])
+    te = side.rows.shape[0] // side.blkid.shape[0]
+    sl = slice(t0 * te, t1 * te)
+    m = x.index_select(0, side.rows[sl])
+    if w is not None:
+        m.mul_(w.to(m.dtype).index_select(0, side.edge[sl])[:, None])
+    y = seg_matmul_plain(side.blkid[t0:t1] - b0, m, side.off[sl],
+                         side.valid[sl], b1 - b0, bs=side.bs)
+    return y[:min(b1 * side.bs, side.n_out) - b0 * side.bs]
+
+
+def agg_vs_plain(dev, src, dst, n, f=64, w=None, seed=SEED, lay=None,
+                 blocks=None):
+    """Phase 3i (b): the aggregation on the card at one edge set (``src``/
+    ``dst`` (E,) over n nodes, or (G, E) over G graphs of n nodes; ``w``
+    flat per edge; ``lay`` its ``EdgeLayouts``, else built here), forward
+    and backward (2 K3 launches), K3's output rows bit-equal to
+    ``seg_matmul_plain`` on the card, forward and backward: every block,
+    or with ``blocks`` the first and the last ``blocks`` blocks (their
+    highest message offsets past 2^31 elements at ogb_products, where the
+    plain version's f64 copy of every message does not fit); the ms of one
+    K3 launch (forward), of the gather and of ``index_add_`` over the E
+    unpadded messages, each by CUDA events over repeated calls (late in a
+    long process the profiler drops kernel events; at small shapes these
+    times include the host's launch). Returns a dict of the numbers."""
+    import torch
+    from repro_torch.kernels import counters, reset_counters
+    from repro_torch.kernels.ops import EdgeLayouts, aggregate
+    from repro_torch.kernels.seg_matmul import seg_matmul, seg_scratch_sizes
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if lay is None:
+        lay = EdgeLayouts.build(src, dst, n)
+    fw, nt = lay.fwd, lay.n_nodes
+    h = torch.randn((nt, f), generator=gen, device=dev, requires_grad=True)
+    gout = torch.randn((nt, f), generator=gen, device=dev)
+    torch.cuda.synchronize(dev)
+    reset_counters()
+    out = aggregate(h, lay, w)
+    out.backward(gout)
+    torch.cuda.synchronize(dev)
+    launches = counters.seg_matmul
+    check(launches == 2, f"3i (b): {launches} K3 launches, not 2")
+    nb, bs = fw.n_blocks, fw.bs
+    ranges = [(0, nb)] if blocks is None or 2 * blocks >= nb \
+        else [(0, blocks), (nb - blocks, nb)]
+    hd = h.detach()
+    for b0, b1 in ranges:
+        for what, side, x, y in (("forward", lay.fwd, hd, out),
+                                 ("backward", lay.rev, gout, h.grad)):
+            got = y[b0 * bs:b1 * bs]
+            want = plain_rows(side, x, w, b0, b1)
+            check(torch.equal(got, want),
+                  f"3i (b) N={nt}: K3's {what} differs from its plain "
+                  f"version in blocks {b0}-{b1 - 1} by "
+                  f"{(got - want).abs().max().item():.3e}")
+            del want
+    te = fw.rows.shape[0] // fw.blkid.shape[0]
+    top = int(fw.tile_ptr[ranges[-1][1]]) * te - 1  # the last slot checked
+    del out, h, gout
+    msgs = fw.messages(hd, w)
+    t_k3 = ms(lambda: seg_matmul(fw.blkid, msgs, fw.off, fw.valid,
+                                 fw.n_blocks, bs=fw.bs, tile_ptr=fw.tile_ptr,
+                                 scratch=lay.scratch), 3)
+    del msgs
+    t_gather = ms(lambda: fw.messages(hd, w), 3)
+    s_l, d_l, keep = flat_edges(src, dst, n)
+    raw = hd.index_select(0, s_l)
+    if w is not None:
+        raw = raw * w[keep].to(raw.dtype)[:, None]
+    zeros = torch.zeros((nt, f), device=dev)
+    t_lib = ms(lambda: zeros.zero_().index_add_(0, d_l, raw), 3)
+    e = int(s_l.shape[0])
+    e_pad = fw.rows.shape[0]
+    # the bytes K3's function must move: each message row read, one
+    # destination index an edge, each output row written once
+    moved = e * f * 4 + 4 * e + fw.n_blocks * fw.bs * f * 4
+    ws = seg_scratch_sizes(fw.blkid.shape[0], fw.n_blocks, fw.bs, f, 4)[0]
+    del raw
+    return dict(n=nt, e=e, e_pad=e_pad, n_tiles=int(fw.blkid.shape[0]),
+                launches=launches, checked=[(b0, b1 - 1) for b0, b1 in ranges],
+                n_blocks=nb, top_elem=(top + 1) * f - 1, ms=t_k3, gather_ms=t_gather,
+                library_ms=t_lib, ws_bytes=ws,
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+
+
+def agg_line(label, r):
+    return (f"[3i agg {label}] N={r['n']:,} E={r['e']:,} e_pad="
+            f"{r['e_pad']:,} ({r['e_pad'] / max(r['e'], 1) - 1:.1%} "
+            f"padding) tiles {r['n_tiles']:,}, F 64 f32: "
+            + f"forward and backward bit-equal to seg_matmul_plain in "
+            f"blocks {r['checked']} of {r['n_blocks']:,} (message elements "
+            f"up to offset {r['top_elem']:,}), "
+            + f"{r['launches']} K3 launches; K3 ms={r['ms']:.4f} (a launch"
+            f", events) bound_ms={r['bound_ms']:.4f} (bytes) gather ms="
+            f"{r['gather_ms']:.4f} index_add_ ms={r['library_ms']:.4f} (E "
+            f"unpadded messages; events, zeroing included); K3 workspace "
+            f"{r['ws_bytes'] / 1e9:.3f} GB")
+
+
+def gnn_phase():
+    """Phase 3i: the GNN family (gin-tu) on the card; returns K3's GNN
+    numbers for the kernels line.
+
+    (a) ``gnn_vs_host``. (b) ``agg_vs_plain`` at ``full_graph_sm``
+    (Cora's 2,708 nodes and 10,556 seeded random edges), at
+    ogb_products (c's graph; the first and the last ``GNN_CHECK_BLOCKS``
+    blocks held to the plain version), at one ``minibatch_lg`` sampled
+    block (d's first sample) and at one molecule batch (e's first). (c)
+    ``for_shape(ogb_products)`` full-graph training (``node_loss``) on a
+    seeded random graph with the published counts (2,449,029 nodes,
+    61,859,140 edges, d_feat 100, 47 classes), 5 steps: layouts built on
+    the card, median step ms (CUDA events, steps 2-5) against the bound
+    (3 x ``gnn_full_train``'s model flops over 67 TFLOP/s f32, or one
+    gathered 256 B row an edge an aggregation, 10 aggregations, over
+    3.35 TB/s), peak ``max_memory_allocated``, K3 launches a step, a
+    profiled step's device time by kernel, K3's and ``index_add_``'s
+    device ms at that shape, the losses. (d) ``minibatch_lg``: a seeded
+    Reddit-sized graph (232,965 nodes, 114,615,892 edges, lognormal
+    degrees; the table keeps ``GNN_MAX_DEG`` neighbors a node), a fresh
+    1,024-seed (15, 10) sample on the card each step, sharing the first
+    sample's edges and layouts: sampler ms and step ms. (e)
+    ``molecule``: 128 padded graphs of 30 nodes and 64 edges, a fresh
+    batch each step, its layouts built before its step. (f) ``python -m
+    repro_torch.launch.train --arch gin-tu`` on the card, a checkpoint,
+    then ``--resume``."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="smoke_3i_")
+    try:
+        return _gnn_phase(tmp)
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _step_ms(dev, fn):
+    """(fn's result, its ms by CUDA events)."""
+    import torch
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize(dev)
+    return out, a.elapsed_time(b)
+
+
+def _gnn_phase(tmp, dev=None):
+    import os
+    import statistics
+
+    import torch
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.gin_tu import for_shape
+    from repro_torch.graph import (Graph, SamplerTables, khop_sizes,
+                                   sample_khop)
+    from repro_torch.kernels import counters, reset_counters
+    from repro_torch.kernels.ops import EdgeLayouts, GNN_TILE_E
+    from repro_torch.models import gnn as pg
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step)
+    t_phase = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+
+    # ------------------------------------- (a) card against the host CPU
+    line, bad = gnn_vs_host(dev)
+    print(line, flush=True)
+    check(not bad, f"3i (a): {bad}")
+
+    # ------------------------------------- (b) the aggregation at Cora
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sm = GNN_SHAPES["full_graph_sm"]
+    src, dst = (torch.randint(0, sm["n_nodes"], (sm["n_edges"],),
+                              generator=gen, device=dev, dtype=torch.int32)
+                for _ in range(2))
+    print(agg_line("full_graph_sm", agg_vs_plain(dev, src, dst,
+                                                 sm["n_nodes"])), flush=True)
+
+    # ---------------------------- (c) ogb_products full-graph training
+    shape = GNN_SHAPES["ogb_products"]
+    cfg = for_shape(shape)
+    n, e = shape["n_nodes"], shape["n_edges"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    src, dst = (torch.randint(0, n, (e,), generator=gen, device=dev,
+                              dtype=torch.int32) for _ in range(2))
+    batch = {"x": torch.randn((n, cfg.d_in), generator=gen, device=dev),
+             "src": src, "dst": dst,
+             "labels": torch.randint(0, cfg.n_classes, (n,), generator=gen,
+                                     device=dev)}
+    lay, t_build = _step_ms(dev, lambda: EdgeLayouts.build(src, dst, n))
+    batch["lay"] = lay
+    fw = lay.fwd
+    from repro_torch.kernels.seg_matmul import seg_scratch_sizes
+    ws = seg_scratch_sizes(fw.blkid.shape[0], fw.n_blocks, fw.bs,
+                           cfg.d_hidden, 4)[0]
+    e_pad = fw.rows.shape[0]
+    print(f"[3i ogb_products layouts] N={n:,} E={e:,} seeded random "
+          f"(published counts), tile_e {GNN_TILE_E}: {fw.n_blocks:,} "
+          f"blocks, {fw.blkid.shape[0]:,} tiles, e_pad {e_pad:,} "
+          f"({e_pad / e - 1:.1%} padding); both layouts built on the card "
+          f"in {t_build:.1f} ms; per aggregation: gathered messages "
+          f"{e_pad * cfg.d_hidden * 4 / 1e9:.2f} GB, K3 workspace "
+          f"{ws / 1e9:.2f} GB (one, shared by both layouts), index arrays "
+          f"{4 * 4 * e_pad / 1e9:.2f} GB a layout", flush=True)
+    model = pg.GIN(cfg, seed=SEED, device=dev)
+    fn = lambda m, b: pg.node_loss(m, b, cfg)  # noqa: E731
+    step = make_train_step(fn, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                           total_steps=GNN_STEPS))
+    st = init_opt_state(model)
+    times, losses, per_step = [], [], []
+    for _ in range(GNN_STEPS):
+        reset_counters()
+        (_, st, m), t = _step_ms(dev, lambda: step(model, st, batch))
+        per_step.append(counters.seg_matmul)
+        times.append(t)
+        losses.append(float(m["loss"]))
+    check(all(c == 2 * cfg.n_layers for c in per_step),
+          f"3i (c): K3 launches a step {per_step}, not {2 * cfg.n_layers}")
+    check(all(np.isfinite(losses)), f"3i (c): losses {losses}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    dh, ep = cfg.d_hidden, -(-e // 4096) * 4096
+    mf = cfg.n_layers * (2 * ep * dh + 4 * n * dh * dh) \
+        + 2 * n * cfg.d_in * dh
+    t_ops = 3 * mf / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = 2 * cfg.n_layers * e * dh * 4 / HBM_BYTES_PER_S * 1e3
+    med = statistics.median(times[1:])
+    # one profiled step: the device time by kernel
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, t_prof = _step_ms(dev, lambda: step(model, st, batch))
+    def dev_ms(ev):
+        t = getattr(ev, "self_device_time_total", None)
+        return (t if t is not None else ev.self_cuda_time_total) / 1e3
+    kern = sorted(((ev.key, dev_ms(ev), ev.count)
+                   for ev in prof.key_averages()), key=lambda x: -x[1])
+    busy = sum(k[1] for k in kern)
+    # the profiler drops kernel events late in a long process: say so
+    seen = sum(k[2] for k in kern if "seg_matmul_kernel" in k[0])
+    print(f"[3i train ogb_products] gin-tu for_shape(ogb_products) (5 "
+          f"layers, d_hidden 64, d_in 100, 47 classes), node_loss, "
+          f"{GNN_STEPS} steps: step ms {[round(t, 3) for t in times]} "
+          f"(CUDA events), median of steps 2-{GNN_STEPS} {med:.3f}; bound "
+          f"{max(t_ops, t_bytes):.3f} ms "
+          f"({'operations' if t_ops > t_bytes else 'bytes'}: "
+          f"flops {t_ops:.3f} ms = 3 x {mf / 1e9:.1f} GFLOP over 67 "
+          f"TFLOP/s f32, bytes {t_bytes:.3f} ms = 10 aggregations x E x "
+          f"256 B over 3.35 TB/s); peak allocated {peak / 1e9:.2f} GB; K3 "
+          f"launches a step {per_step}; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    print(f"[3i profile ogb_products] one step: {t_prof:.3f} ms (events), "
+          f"the profiler saw {seen} of {2 * cfg.n_layers} K3 launches"
+          + ("" if seen == 2 * cfg.n_layers else " (events dropped: the "
+             "split below is incomplete)")
+          + f"; device busy {busy:.3f} ms (idle share "
+          f"{max(0.0, 1 - busy / t_prof):.3f}); top kernels (ms, count): "
+          + "; ".join(f"{k[0][:48]} {k[1]:.3f} x{k[2]}" for k in kern[:8]),
+          flush=True)
+    c_launches = sum(per_step)
+    del st, step, m
+    torch.cuda.empty_cache()
+    ogb = agg_vs_plain(dev, src, dst, n, lay=lay, blocks=GNN_CHECK_BLOCKS)
+    print(agg_line("ogb_products", ogb), flush=True)
+    del model, batch, src, dst, lay
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- (d) minibatch_lg
+    shape = GNN_SHAPES["minibatch_lg"]
+    cfg = for_shape(shape)
+    n, e = shape["n_nodes"], shape["n_edges"]
+    fan, nb = tuple(shape["fanout"]), shape["batch_nodes"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    wdeg = rng.lognormal(0.0, 1.0, n)
+    deg = np.floor(wdeg / wdeg.sum() * e).astype(np.int64)
+    deg[rng.permutation(n)[:e - int(deg.sum())]] += 1
+    g = Graph(n, np.repeat(np.arange(n, dtype=np.int32), deg),
+              rng.integers(0, n, e, dtype=np.int32))
+    tables = SamplerTables.build(g, GNN_MAX_DEG, device=dev)
+    t_tab = time.perf_counter() - t0
+    kept = int(np.minimum(deg, GNN_MAX_DEG).sum())
+    print(f"[3i minibatch_lg tables] N={n:,} E={e:,} seeded, lognormal "
+          f"degrees (max {deg.max():,}, median {int(np.median(deg))}); "
+          f"table cut to {GNN_MAX_DEG} neighbors a node: {kept:,} edges "
+          f"kept ({1 - kept / e:.1%} cut), "
+          f"{tables.nbr.numel() * 4 / 1e9:.2f} GB on the card; built in "
+          f"{t_tab:.1f} s (host padded_neighbors + H2D)", flush=True)
+    del g
+    feats = torch.randn((n, cfg.d_in), generator=gen, device=dev)
+    ylab = torch.randint(0, cfg.n_classes, (n,), generator=gen, device=dev)
+    model = pg.GIN(cfg, seed=SEED, device=dev)
+    fn = lambda m, b: pg.sampled_loss(m, b, cfg)  # noqa: E731
+    step = make_train_step(fn, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                           total_steps=GNN_STEPS))
+    st = init_opt_state(model)
+    t_samp, t_step, losses, per_step = [], [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    sub = None
+    for s in range(GNN_STEPS):
+        def sample():
+            seeds = torch.randperm(n, generator=gen, device=dev)[:nb]
+            return seeds, sample_khop(tables, seeds, fan, generator=gen,
+                                      like=sub)
+        (seeds, sub), t = _step_ms(dev, sample)
+        b, t_f = _step_ms(dev, lambda: {
+            "feats": feats[sub.nodes.long()], "edge_src": sub.edge_src,
+            "edge_dst": sub.edge_dst, "edge_mask": sub.edge_mask,
+            "labels": ylab[seeds], "n_seeds": sub.n_seeds, "lay": sub.lay})
+        t_samp.append(t + t_f)
+        if s == 0:
+            blk = agg_vs_plain(dev, b["edge_src"], b["edge_dst"],
+                               b["feats"].shape[0], w=b["edge_mask"],
+                               lay=sub.lay)
+            print(agg_line("minibatch_lg block", blk), flush=True)
+        reset_counters()
+        (_, st, m), t = _step_ms(dev, lambda: step(model, st, b))
+        t_step.append(t)
+        per_step.append(counters.seg_matmul)
+        losses.append(float(m["loss"]))
+    check(all(c == 2 * cfg.n_layers for c in per_step),
+          f"3i (d): K3 launches a step {per_step}")
+    check(all(np.isfinite(losses)), f"3i (d): losses {losses}")
+    n_tot, e_tot = khop_sizes(nb, fan)
+    print(f"[3i train minibatch_lg] gin-tu for_shape(minibatch_lg) (d_in "
+          f"602, 41 classes), sampled_loss, {nb} seeds x fanouts {fan} "
+          f"({n_tot:,} nodes, {e_tot:,} edges a sample), a fresh sample "
+          f"on the card each step: sampler ms (events, with the feature "
+          f"gather) {[round(t, 3) for t in t_samp]}, step ms "
+          f"{[round(t, 3) for t in t_step]} (median of steps 2-"
+          f"{GNN_STEPS} {statistics.median(t_step[1:]):.3f}; sample 1 "
+          f"builds the layouts, later ones share them); peak allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; K3 "
+          f"launches a step {per_step}; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    del model, st, step, m, b, sub, tables, feats, ylab
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------- (e) molecule
+    shape = GNN_SHAPES["molecule"]
+    cfg = for_shape(shape)
+    gb, n, e = shape["global_batch"], shape["n_nodes"], shape["n_edges"]
+    model = pg.GIN(cfg, seed=SEED, device=dev)
+    fn = lambda m, b: pg.graph_loss(m, b, cfg)  # noqa: E731
+    step = make_train_step(fn, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                           total_steps=GNN_STEPS))
+    st = init_opt_state(model)
+    t_step, t_lay, losses, per_step = [], [], [], []
+    for s in range(GNN_STEPS):
+        n_real = torch.randint(n // 2, n + 1, (gb,), generator=gen,
+                               device=dev)
+        e_real = torch.randint(e // 2, e + 1, (gb,), generator=gen,
+                               device=dev)
+        def ends():
+            return (torch.rand((gb, e), generator=gen, device=dev)
+                    * n_real[:, None]).long()
+        b = {"x": torch.randn((gb, n, cfg.d_in), generator=gen, device=dev),
+             "src": ends(), "dst": ends(),
+             "node_mask": torch.arange(n, device=dev)[None, :]
+             < n_real[:, None],
+             "edge_mask": torch.arange(e, device=dev)[None, :]
+             < e_real[:, None],
+             "labels": torch.randint(0, cfg.n_classes, (gb,), generator=gen,
+                                     device=dev)}
+        b["lay"], t = _step_ms(dev, lambda: EdgeLayouts.build(
+            b["src"], b["dst"], n))
+        t_lay.append(t)
+        if s == 0:
+            mol = agg_vs_plain(dev, b["src"], b["dst"], n,
+                               w=b["edge_mask"].reshape(-1), lay=b["lay"])
+            print(agg_line("molecule batch", mol), flush=True)
+        reset_counters()
+        (_, st, m), t = _step_ms(dev, lambda: step(model, st, b))
+        t_step.append(t)
+        per_step.append(counters.seg_matmul)
+        losses.append(float(m["loss"]))
+    check(all(c == 2 * cfg.n_layers for c in per_step),
+          f"3i (e): K3 launches a step {per_step}")
+    check(all(np.isfinite(losses)), f"3i (e): losses {losses}")
+    print(f"[3i train molecule] gin-tu for_shape(molecule), graph_loss, "
+          f"{gb} padded graphs of {n} nodes and {e} edges flattened into "
+          f"one edge set, a fresh batch each step: step ms "
+          f"{[round(t, 3) for t in t_step]} (events), its layouts' build "
+          f"before it {[round(t, 3) for t in t_lay]} ms (events); K3 "
+          f"launches a step {per_step}; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    del model, st, step, m, b
+
+    # --------------------------------- (f) launch.train on the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), TMPDIR=tmp)
+    args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "gin-tu", "--ckpt", os.path.join(tmp, "ck"), "--ckpt-every",
+            "20"]
+    outs = []
+    for extra in (["--steps", "40"], ["--steps", "50", "--resume"]):
+        t0 = time.perf_counter()
+        r = subprocess.run(args + extra, capture_output=True, text=True,
+                           env=env, cwd=tmp, timeout=300)
+        check(r.returncode == 0, f"3i (f) launch.train: {r.stderr[-3000:]}")
+        outs.append((time.perf_counter() - t0, r.stdout))
+    check("(CUDA events)" in outs[0][1] and "done: 40 steps" in outs[0][1]
+          and "resumed from step 40" in outs[1][1]
+          and "done: 10 steps" in outs[1][1],
+          f"3i (f): {outs[0][1][-1500:]} {outs[1][1][-1500:]}")
+    for (t, out), what in zip(outs, ("40 steps", "--resume to 50")):
+        print(f"[3i launch.train gin-tu {what}] {t:.1f} s: "
+              + " | ".join(x.strip() for x in out.splitlines()[-3:]),
+              flush=True)
+    print(f"[3i] phase 3i: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(launches=c_launches, ogb=ogb, step_ms=med,
+                bound_ms=max(t_ops, t_bytes))
 
 
 if __name__ == "__main__":

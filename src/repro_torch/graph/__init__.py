@@ -4,6 +4,7 @@ from .generators import (PAPER_TABLE7, WebGraphSpec, all_paper_datasets,
                          bipartite_interactions, generate_webgraph,
                          paper_dataset)
 from .partition import partition_edges, partition_edges_by_dst_block
+from .sampler import SampledSubgraph, SamplerTables, khop_sizes, sample_khop
 from .structure import (BSR, CSR, Graph, next_pow2, padded_neighbors, to_bsr,
                         to_csr)
 from .subgraph import FocusedSubgraph, SubgraphExtractor, root_set_key
@@ -23,5 +24,6 @@ __all__ = [
     "bipartite_interactions",
     "generate_webgraph", "paper_dataset",
     "partition_edges", "partition_edges_by_dst_block",
+    "SampledSubgraph", "SamplerTables", "khop_sizes", "sample_khop",
     "FocusedSubgraph", "SubgraphExtractor", "root_set_key", "from_reference",
 ]

@@ -4,7 +4,8 @@ bsr_spmm: block-sparse adjacency x multi-vector with fused Ca/Ch scaling
           (K1) and the convergence loop around it (K2), one CUDA graph per
           call (``K2Graph``), with its sweep-epilogue kernels.
 seg_matmul: tiled segment-sum of gathered edge messages (K3), behind
-          ``ops.seg_aggregate``.
+          ``ops.seg_aggregate`` and GIN's aggregation ``ops.aggregate``
+          (forward and backward, over ``ops.EdgeLayouts``).
 ops.hits_sweep_bsr: the whole-graph accelerated-HITS sweep, K1 twice a
           sweep (one column over the unpermuted graph).
 The kernels build at first use from ``csrc/`` (``kernels.build``); on CPU
@@ -19,10 +20,10 @@ from .bsr_spmm import (BsrOperand, K2Graph, LoopState,
                        bsr_scaled_matvec_plain, counters, reset_counters,
                        sweep_certificate, sweep_certificate_plain,
                        sweep_epilogue, sweep_epilogue_plain)
-from .ops import (DeviceBSR, DeviceSegments, bsr_converge, bsr_matvec,
-                  bsr_nblocks, bsr_revalue, build_tiled_segments,
-                  classify_exit, hits_sweep_bsr, pad_empty_rows,
-                  pad_messages, seg_aggregate)
+from .ops import (DeviceBSR, DeviceSegments, EdgeLayouts, aggregate,
+                  bsr_converge, bsr_matvec, bsr_nblocks, bsr_revalue,
+                  build_tiled_segments, classify_exit, hits_sweep_bsr,
+                  pad_empty_rows, pad_messages, seg_aggregate, tiled_layout)
 from .seg_matmul import seg_matmul, seg_matmul_plain
 
 __all__ = [
@@ -32,5 +33,5 @@ __all__ = [
     "sweep_epilogue", "sweep_epilogue_plain", "DeviceBSR", "bsr_converge",
     "bsr_matvec", "bsr_nblocks", "bsr_revalue", "hits_sweep_bsr", "classify_exit", "pad_empty_rows",
     "build_tiled_segments", "pad_messages", "seg_aggregate", "seg_matmul",
-    "seg_matmul_plain",
+    "seg_matmul_plain", "EdgeLayouts", "aggregate", "tiled_layout",
 ]

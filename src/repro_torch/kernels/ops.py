@@ -287,37 +287,57 @@ def classify_exit(conv, res, tol: float, max_iter: int, rank_k: int = 0,
 
 
 # ---------------------------------------------------------- seg_matmul path
+def tiled_layout(keys: torch.Tensor, n_rows: int, bs: int = 128,
+                 tile_e: int = 256) -> dict:
+    """K3's tiled layout of ``keys`` (E,) in [0, n_rows), made with torch
+    ops on the keys' device (``build_tiled_segments`` is its host form):
+    perm (E_pad,) slot -> position in ``keys`` (-1 for padding), blkid
+    (n_tiles,), off and valid (flat (E_pad,) int32), tile_ptr
+    (``tile_ptr_of``), n_blocks and e_pad. One host read (the tile
+    count)."""
+    dev = keys.device
+    keys = keys.long()
+    n_blocks = (n_rows + bs - 1) // bs
+    blk = keys // bs
+    order = torch.argsort(blk, stable=True)
+    blk_sorted = blk.index_select(0, order)
+    counts = torch.bincount(blk, minlength=n_blocks)
+    tiles = torch.clamp((counts + tile_e - 1) // tile_e, min=1)
+    tile_ptr = torch.zeros(n_blocks + 1, dtype=torch.long, device=dev)
+    torch.cumsum(tiles, 0, out=tile_ptr[1:])
+    edge_ptr = torch.cumsum(counts, 0) - counts
+    n_tiles = int(tile_ptr[-1])
+    e_pad = n_tiles * tile_e
+    rank = torch.arange(keys.shape[0], device=dev) \
+        - edge_ptr.index_select(0, blk_sorted)
+    slot = tile_ptr.index_select(0, blk_sorted) * tile_e + rank
+    perm = torch.full((e_pad,), -1, dtype=torch.long, device=dev)
+    perm[slot] = order
+    off = torch.zeros(e_pad, dtype=torch.int32, device=dev)
+    off[slot] = (keys.index_select(0, order) - blk_sorted * bs).int()
+    valid = torch.zeros(e_pad, dtype=torch.int32, device=dev)
+    valid[slot] = 1
+    blkid = torch.repeat_interleave(
+        torch.arange(n_blocks, dtype=torch.int32, device=dev), tiles,
+        output_size=n_tiles)
+    return {"perm": perm, "blkid": blkid, "off": off, "valid": valid,
+            "tile_ptr": tile_ptr.int(), "n_blocks": n_blocks, "e_pad": e_pad}
+
+
 def build_tiled_segments(dst: np.ndarray, n_nodes: int, bs: int = 128,
                          tile_e: int = 256):
     """Group edges by destination block and pad each block's edge run to
     whole tiles (every block gets at least one tile). Within a block the
     edges keep their input order. Returns {perm (E_pad,) slot -> edge (-1:
     padding), blkid (n_tiles,), off (E_pad,1), valid (E_pad,1), n_blocks,
-    e_pad}; messages are laid out with ``pad_messages``."""
-    order = np.argsort(dst // bs, kind="stable")
-    dst_sorted = dst[order]
-    blk = dst_sorted // bs
-    n_blocks = (n_nodes + bs - 1) // bs
-    counts = np.bincount(blk, minlength=n_blocks)
-    tiles_per_blk = np.maximum(1, -(-counts // tile_e))
-    n_tiles = int(tiles_per_blk.sum())
-    e_pad = n_tiles * tile_e
-    blkid = np.repeat(np.arange(n_blocks, dtype=np.int32), tiles_per_blk)
-    off = np.zeros((e_pad, 1), np.int32)
-    valid = np.zeros((e_pad, 1), np.int32)
-    perm = np.full(e_pad, -1, np.int64)  # padded slot -> original edge
-    write = 0
-    read = 0
-    for b in range(n_blocks):
-        c = int(counts[b])
-        slots = int(tiles_per_blk[b]) * tile_e
-        off[write:write + c, 0] = dst_sorted[read:read + c] - b * bs
-        valid[write:write + c, 0] = 1
-        perm[write:write + c] = order[read:read + c]
-        write += slots
-        read += c
-    return {"perm": perm, "blkid": blkid, "off": off, "valid": valid,
-            "n_blocks": n_blocks, "e_pad": e_pad}
+    e_pad} as host arrays (``tiled_layout`` on the host); messages are
+    laid out with ``pad_messages``."""
+    seg = tiled_layout(torch.from_numpy(np.array(dst, np.int64)), n_nodes,
+                       bs, tile_e)
+    return {"perm": seg["perm"].numpy(), "blkid": seg["blkid"].numpy(),
+            "off": seg["off"].numpy()[:, None],
+            "valid": seg["valid"].numpy()[:, None],
+            "n_blocks": seg["n_blocks"], "e_pad": seg["e_pad"]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -383,3 +403,154 @@ def seg_aggregate(msgs, seg, *, bs: int = 128, n_nodes: int):
     y = seg_matmul(ds.blkid, m.contiguous(), ds.off, ds.valid, ds.n_blocks,
                    bs=bs, tile_ptr=ds.tile_ptr, scratch=ds.scratch)
     return y[:n_nodes]
+
+
+# ----------------------------------------------- GNN aggregation on K3
+GNN_TILE_E = 256  # slots per K3 tile of the GNN's layouts
+
+
+def _accum_of(dtype) -> str:
+    """K3's accumulator for messages of ``dtype``: f64 for f64 (what
+    ``segment_sum`` adds f64 messages in), else f32."""
+    return "float64" if dtype == torch.float64 else "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotLayout:
+    """One direction of an edge set in K3's tiled layout: slot s gathers
+    row ``rows[s]`` of its input and holds edge ``edge[s]`` (both 0 for
+    padding slots, which K3 skips), summed into output row ``off[s]`` of
+    block ``blkid`` of its tile."""
+
+    rows: torch.Tensor      # (E_pad,) int32
+    edge: torch.Tensor      # (E_pad,) int32
+    blkid: torch.Tensor     # (n_tiles,) int32
+    off: torch.Tensor       # (E_pad,) int32
+    valid: torch.Tensor     # (E_pad,) int32
+    tile_ptr: torch.Tensor  # (n_blocks + 1,) int32
+    n_blocks: int
+    n_out: int
+    bs: int
+
+    def messages(self, x, w=None):
+        """(E_pad, F): x's rows gathered straight into the slots, times
+        the slot's edge weight (``w`` (E,) per edge, None for 1)."""
+        m = x.index_select(0, self.rows)
+        if w is not None:
+            m.mul_(w.to(m.dtype).index_select(0, self.edge)[:, None])
+        return m
+
+    def sum(self, x, w=None, scratch: Optional[Scratch] = None):
+        """(n_out, F): each output row's sum of its slots' messages (K3
+        on x's device)."""
+        y = seg_matmul(self.blkid, self.messages(x, w), self.off,
+                       self.valid, self.n_blocks, bs=self.bs,
+                       accum_dtype=_accum_of(x.dtype),
+                       tile_ptr=self.tile_ptr, scratch=scratch)
+        return y[:self.n_out]
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeLayouts:
+    """An edge set's two K3 layouts: ``fwd`` keyed by dst, gathering
+    ``src`` (out[i] = Σ_{dst_e = i} w_e · h[src_e]), and ``rev`` keyed by
+    src, gathering ``dst`` (its transpose, the gradient with respect to
+    h). Edges whose src or dst lies outside [0, n) are dropped first, as
+    ``jax.ops.segment_sum`` drops out-of-range destinations. One
+    ``Scratch`` serves both on the card (their launches share a stream).
+    """
+
+    fwd: SlotLayout
+    rev: SlotLayout
+    n_nodes: int
+    scratch: Optional[Scratch]
+
+    @staticmethod
+    def build(src, dst, n: int, bs: int = 128,
+              tile_e: int = GNN_TILE_E) -> "EdgeLayouts":
+        """Layouts of ``src``/``dst`` (E,) on a graph of n nodes, or of G
+        graphs of n nodes each ((G, E) tensors, node ids local to their
+        graph): then graph g's nodes are rows g·n..g·n + n - 1 of one
+        flattened edge set, and edge weights are given flattened (G·E,)."""
+        src, dst = torch.as_tensor(src), torch.as_tensor(dst)
+        dev = src.device
+        src, dst = src.long(), dst.long().to(dev)
+        keep = (src >= 0) & (src < n) & (dst >= 0) & (dst < n)
+        n_total = n
+        if src.dim() == 2:
+            base = torch.arange(src.shape[0], device=dev)[:, None] * n
+            src, dst, n_total = src + base, dst + base, n * src.shape[0]
+        src, dst, keep = src.reshape(-1), dst.reshape(-1), keep.reshape(-1)
+        kept = keep.nonzero().squeeze(1)
+        pad = torch.zeros(1, dtype=torch.long, device=dev)
+        edge_ext = torch.cat([kept, pad])
+
+        def side(keys, other):
+            seg = tiled_layout(keys.index_select(0, kept), n_total, bs,
+                               tile_e)
+            pos = torch.where(seg["perm"] >= 0, seg["perm"], kept.shape[0])
+            edge = edge_ext.index_select(0, pos)
+            rows = torch.cat([other.index_select(0, kept), pad]) \
+                .index_select(0, pos)
+            return SlotLayout(rows.int(), edge.int(), seg["blkid"],
+                              seg["off"], seg["valid"], seg["tile_ptr"],
+                              seg["n_blocks"], n_total, bs)
+
+        return EdgeLayouts(side(dst, src), side(src, dst), n_total,
+                           Scratch(dev) if dev.type == "cuda" else None)
+
+    @staticmethod
+    def of(src, dst, n: int, bs: int = 128,
+           tile_e: int = GNN_TILE_E) -> "EdgeLayouts":
+        """The cached layouts of ``src``/``dst`` (keyed by the identity
+        of the two tensors, dropped with either): a training loop over one
+        edge set builds them once. Edge tensors must not change in place
+        while cached."""
+        if not (torch.is_tensor(src) and torch.is_tensor(dst)):
+            return EdgeLayouts.build(src, dst, n, bs, tile_e)
+        key = (id(src), id(dst), int(n), bs, tile_e)
+        hit = _EDGE_CACHE.get(key)
+        if hit is not None and hit[0]() is src and hit[1]() is dst:
+            return hit[2]
+        drop = lambda _r: _EDGE_CACHE.pop(key, None)  # noqa: E731
+        lay = EdgeLayouts.build(src, dst, n, bs, tile_e)
+        _EDGE_CACHE[key] = (weakref.ref(src, drop), weakref.ref(dst, drop),
+                            lay)
+        return lay
+
+
+# (id(src), id(dst), n, bs, tile_e) -> (weak refs to src and dst, layouts)
+_EDGE_CACHE: dict = {}
+
+
+class _Aggregate(torch.autograd.Function):
+    """out = fwd-layout sum of w·h[src]; its gradient the rev-layout sum
+    of w·grad[dst]: two K3 launches, no ``index_select`` backward (an
+    ``index_add_`` with float atomics on the card). No gradient flows to
+    the edge weights."""
+
+    @staticmethod
+    def forward(ctx, h, lay, w):
+        ctx.lay = lay
+        ctx.save_for_backward(w)
+        return lay.fwd.sum(h, w, lay.scratch)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (w,) = ctx.saved_tensors
+        return ctx.lay.rev.sum(grad, w, ctx.lay.scratch), None, None
+
+
+def aggregate(h, lay: EdgeLayouts, edge_w=None):
+    """GIN's sum aggregation Σ_{e: dst_e = i} w_e · h[src_e] for every
+    node i of ``lay`` (``EdgeLayouts.of(src, dst, n)``), with its
+    gradient with respect to ``h``. ``edge_w``: None or (E,) weights (a
+    bool mask included) in the edges' order. On the card both directions
+    launch K3; on the CPU they run its plain version through the same
+    layouts."""
+    if h.shape[0] != lay.n_nodes:
+        raise ValueError(f"h has {h.shape[0]} rows, the layouts "
+                         f"{lay.n_nodes}")
+    w = None if edge_w is None else edge_w.detach().reshape(-1)
+    return _Aggregate.apply(h, lay, w)

@@ -1,5 +1,6 @@
 """Training launcher (port of ``repro.launch.train``, on the card unless
-``--device cpu``): an LM or recsys ``--arch`` with checkpoint/restart.
+``--device cpu``): an LM, GNN or recsys ``--arch`` with
+checkpoint/restart.
 Every flag is the reference's, plus ``--device``. A checkpoint holds
 ``{"params": <the reference's parameter tree>, "opt": {"m", "v",
 "step"}}`` with the reference's keys, so a checkpoint directory written
@@ -12,8 +13,13 @@ by either package resumes in the other.
       --ckpt /tmp/lm_ckpt
 
 An LM arch trains the ``Transformer`` on ``lm_batch`` (``--seq`` tokens a
-row). The GNN architecture is not ported yet (ROADMAP item 11): asking
-for it exits non-zero and says so. Besides the reference's lines it
+row). The GNN (``gin-tu``) trains ``GIN`` by ``node_loss`` on the
+reference's graph (``generate_webgraph(WebGraphSpec(500, 4000, 0.2,
+seed=1))``) with features and labels from a seeded ``torch.Generator``
+(not ``jax.random``'s bits), one batch kept on the device for every
+step and its aggregation layouts built once beside it; ``--batch`` and
+``--seq`` do not apply and its samples are the graph's nodes. Besides
+the reference's lines it
 prints a ``timing:`` line over the steps after the first two
 (``StepTimer``): the median step time (CUDA events on the card, the
 host clock on the CPU), the wall time a step with the host's batch
@@ -96,15 +102,41 @@ class StepTimer:
         return out
 
 
+def gnn_batch(cfg, seed: int = 0, device="cuda"):
+    """The GNN branch's one batch, on ``device``: the reference's graph,
+    x (N, d_in) normal and labels uniform in [0, n_classes) from a CPU
+    ``torch.Generator`` seeded with ``seed`` (card and host get the same
+    values)."""
+    from ..graph import WebGraphSpec, generate_webgraph
+    from ..train.data import to_device
+    g = generate_webgraph(WebGraphSpec(500, 4000, 0.2, seed=1))
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((g.n_nodes, cfg.d_in), generator=gen)
+    labels = torch.randint(0, cfg.n_classes, (g.n_nodes,), generator=gen)
+    return to_device({"x": x, "src": torch.from_numpy(g.src),
+                      "dst": torch.from_numpy(g.dst), "labels": labels},
+                     device)
+
+
 def model_and_data(cfg, batch: int, seed: int = 0, device="cuda",
                    seq: int = 64):
-    """(model, loss_fn(model, batch), batch_fn(step)) of an LM or recsys
-    config: the reference's data config per architecture (``seq`` tokens
-    a row for an LM)."""
+    """(model, loss_fn(model, batch), batch_fn(step)) of an LM, GNN or
+    recsys config: the reference's data config per architecture (``seq``
+    tokens a row for an LM; the GNN's one graph batch, ``gnn_batch``,
+    for every step)."""
+    from ..kernels.ops import EdgeLayouts
     from ..models import recsys as rs
+    from ..models.gnn import GIN, GINConfig, node_loss
     from ..models.transformer import Transformer, TransformerConfig
     from ..train import (DataConfig, bst_batch, lm_batch, recsys_batch,
                          twotower_batch)
+    if isinstance(cfg, GINConfig):
+        gbatch = gnn_batch(cfg, seed, device)
+        lay = EdgeLayouts.build(gbatch["src"], gbatch["dst"],
+                                gbatch["x"].shape[0])
+        return (GIN(cfg, seed=seed, device=device),
+                lambda m, b: node_loss(m, dict(b, lay=lay), cfg),
+                lambda s: gbatch)
     if isinstance(cfg, TransformerConfig):
         dc = DataConfig(kind="lm", global_batch=batch, seq_len=seq,
                         vocab=cfg.vocab)
@@ -185,12 +217,15 @@ def main(argv=None):
         spec = get_spec(args.arch)
     except KeyError as e:
         raise SystemExit(f"launch.train: {e.args[0]}")
-    if spec.family not in ("lm", "recsys"):
+    if spec.family not in ("lm", "gnn", "recsys"):
         raise SystemExit("use launch.rank for the ranking workload")
     dev = resolve_device(args.device)
     cfg = spec.smoke_config if args.smoke else spec.config
     model, loss, batch_fn = model_and_data(cfg, args.batch, 0, dev,
                                            seq=args.seq)
+    # samples a step: the batch's rows (the GNN's: the graph's nodes)
+    samples = batch_fn(0)["x"].shape[0] if spec.family == "gnn" \
+        else args.batch
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                           total_steps=args.steps)
@@ -221,7 +256,7 @@ def main(argv=None):
             with timer.excluded():
                 ck.save(args.ckpt, s + 1, checkpoint_tree(model, opt_state))
                 ck.prune(args.ckpt, keep=3)
-    t = timer.summary(args.batch)
+    t = timer.summary(samples)
     print(f"done: {args.steps - start} steps in {time.time() - t0:.1f}s")
     if t["n"] > 0:
         clock = "CUDA events" if card else "host clock"

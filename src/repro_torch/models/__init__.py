@@ -1,7 +1,8 @@
 """Model families (port of ``repro.models``): the LM family (the
 decoder-only transformer with GQA, MLA, SWA and MoE, and its KV-cache
-decode), the recsys architectures and the sharding hints they use. The
-GNN family is not ported yet (ROADMAP item 11)."""
+decode), the GNN (GIN, its aggregation on K3), the recsys architectures
+and the sharding hints they use."""
+from .gnn import GIN, GINConfig
 from .recsys import (BST, DCN, DLRM, BSTConfig, DCNConfig, DLRMConfig,
                      RecsysModel, TwoTower, TwoTowerConfig, bst_logits,
                      bst_loss, dcn_logits, dcn_loss, dlrm_logits, dlrm_loss,
@@ -20,5 +21,5 @@ __all__ = [
     "dcn_logits", "dcn_loss", "dlrm_logits", "dlrm_loss", "embedding_bag",
     "embedding_lookup", "init_twotower_params", "retrieval_scores",
     "retrieval_topk", "twotower_loss", "unified_table_offsets", "DP",
-    "shard_hint",
+    "shard_hint", "GIN", "GINConfig",
 ]

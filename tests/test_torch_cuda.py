@@ -1061,3 +1061,46 @@ def test_serve_launcher_on_card(cuda, tmp_path):
                        cwd=tmp_path, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert f"({torch.cuda.get_device_name(cuda)})" in r.stdout, r.stdout
+
+
+# ------------------------------------------------------ the GNN family
+@pytest.mark.cuda
+def test_gnn_card_matches_host(cuda):
+    """Phase 3i (a) at smoke size (``chip_smoke.gnn_vs_host``): each mode's
+    loss and gradients against the host CPU within 1e-5, K3 launched
+    twice a layer, two identical card train steps bit-equal."""
+    line, bad = chip_smoke().gnn_vs_host(cuda)
+    assert not bad, line
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gnn_aggregate_on_card_matches_plain(cuda, weighted):
+    """Phase 3i (b) at Cora's shape (``chip_smoke.agg_vs_plain``): the
+    aggregation's forward and backward through K3, two launches, each
+    bit-equal to ``seg_matmul_plain`` on the card (a mismatch exits)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    src, dst = (torch.randint(0, 2708, (10556,), generator=gen, device=cuda)
+                for _ in range(2))
+    w = torch.rand(10556, generator=gen, device=cuda) if weighted else None
+    r = chip_smoke().agg_vs_plain(cuda, src, dst, 2708, w=w)
+    assert r["launches"] == 2 and r["e"] == 10556
+
+
+@pytest.mark.cuda
+def test_gnn_train_launcher_on_card(cuda, tmp_path):
+    """``python -m repro_torch.launch.train --arch gin-tu --smoke`` on the
+    card: the reference's lines and the CUDA-event timing line."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        "--arch", "gin-tu", "--smoke", "--steps", "8"],
+                       capture_output=True, text=True, env=env,
+                       cwd=tmp_path, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "done: 8 steps" in r.stdout and "(CUDA events)" in r.stdout, \
+        r.stdout

@@ -405,10 +405,10 @@ def test_train_checkpoint_crosses_packages(writer, tmp_path):
 
 
 def test_train_launcher_refusals(tmp_path, monkeypatch, capsys):
-    """The GNN arch exits non-zero, saying it is not ported yet (ROADMAP
-    item 11), while an LM arch (ported) trains; the ranking arch is sent
+    """An LM arch and the GNN arch train (the GNN as a subprocess, with
+    the reference's ``step``/``done:`` lines); the ranking arch is sent
     to launch.rank as the reference does; without ``--device cpu`` and no
-    card it raises."""
+    card it raises, for the GNN too."""
     from repro_torch.launch import train as ptrain
     for arch in ("deepseek-7b", "gin-tu"):
         if arch == "deepseek-7b":
@@ -416,17 +416,17 @@ def test_train_launcher_refusals(tmp_path, monkeypatch, capsys):
                          "--steps", "1", "--batch", "2", "--seq", "8"])
             assert "done: 1 steps" in capsys.readouterr().out
             continue
-        r = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             arch, "--smoke", "--device", "cpu"], capture_output=True,
-            text=True, env=env(), cwd=tmp_path, timeout=WAIT)
-        assert r.returncode != 0 and "not ported yet" in r.stderr \
-            and "item 11" in r.stderr, r.stderr
+        out = launch("repro_torch.launch.train", "--arch", arch, "--smoke",
+                     "--device", "cpu", "--steps", "1", cwd=tmp_path)
+        assert re.search(r"^step +0 loss [0-9.]+ lr [0-9.e+-]+ gnorm "
+                         r"[0-9.]+$", out, re.M) and "done: 1 steps" in out, \
+            out
     with pytest.raises(SystemExit, match="launch.rank"):
         ptrain.main(["--arch", "hits-webgraph", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="cuda"):
-        ptrain.main(["--arch", "bst", "--smoke", "--steps", "1"])
+    for arch in ("bst", "gin-tu"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            ptrain.main(["--arch", arch, "--smoke", "--steps", "1"])
 
 
 # --------------------------------------------------------- the LM family
@@ -471,10 +471,10 @@ def test_serve_launcher_each_lm_arch(arch, tmp_path):
 
 
 def test_serve_launcher_refusals(tmp_path):
-    """A recsys arch is refused with the reference's message; the GNN
-    arch is not ported yet."""
+    """A recsys arch and the GNN arch are refused with the reference's
+    message."""
     for arch, msg in (("bst", "decode serving applies to LM archs"),
-                      ("gin-tu", "not ported yet")):
+                      ("gin-tu", "decode serving applies to LM archs")):
         r = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
              arch, "--smoke", "--device", "cpu"], capture_output=True,

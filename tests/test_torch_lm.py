@@ -230,7 +230,7 @@ def test_registry():
     """All five LM archs resolve, with the reference's configs, shapes and
     skips; parameter counts are exact at full and smoke size."""
     from repro.configs import ASSIGNED as REF_ASSIGNED
-    assert pconfigs.ASSIGNED == [a for a in REF_ASSIGNED if a != "gin-tu"]
+    assert pconfigs.ASSIGNED == REF_ASSIGNED
     for arch in LM_ARCHS:
         spec, ref = pconfigs.get_spec(arch), ref_spec(arch)
         assert spec.family == ref.family == "lm"

@@ -404,7 +404,7 @@ def test_no_card_raises():
 def test_registry():
     assert pconfigs.ASSIGNED == ["deepseek-v2-236b", "mixtral-8x7b",
                                  "deepseek-7b", "minitron-4b", "minitron-8b",
-                                 "two-tower-retrieval", "dlrm-rm2",
+                                 "gin-tu", "two-tower-retrieval", "dlrm-rm2",
                                  "dcn-v2", "bst"]
     for arch in ARCHS:
         spec, ref = pconfigs.get_spec(arch), ref_spec(arch)
@@ -414,14 +414,10 @@ def test_registry():
         assert spec.shapes == ref.shapes
     assert pconfigs.get_spec("hits-webgraph").shapes == \
         ref_spec("hits-webgraph").shapes
-    assert len(pconfigs.all_cells()) == 36
-    assert len(pconfigs.all_cells(include_ranking=True)) == 39
-    for arch in ("deepseek-7b", "gin-tu"):
-        ref_spec(arch)
-        if arch == "deepseek-7b":  # ported with the LM family
-            assert pconfigs.get_spec(arch).family == "lm"
-            continue
-        with pytest.raises(KeyError, match="item 11"):
-            pconfigs.get_spec(arch)
+    assert len(pconfigs.all_cells()) == 40
+    assert len(pconfigs.all_cells(include_ranking=True)) == 43
+    for arch, family in (("deepseek-7b", "lm"), ("gin-tu", "gnn")):
+        assert pconfigs.get_spec(arch).family == ref_spec(arch).family \
+            == family
     with pytest.raises(KeyError, match="unknown"):
         pconfigs.get_spec("nope")
