@@ -4,6 +4,7 @@
     python3 chip_ablation.py
     python3 chip_ablation.py --k2-only [--src DIR]
     python3 chip_ablation.py --gnn-only [--src DIR]
+    python3 chip_ablation.py --decode-only [--src DIR]
 
 Each kernel is timed beside variants of its own source with one phase cut
 out. A variant is the source with a few lines replaced (``K1_VARIANTS``,
@@ -42,6 +43,12 @@ five bit-equal ways (``index_select`` by int32 rows, the port's, and by
 int64 rows, advanced indexing, ``F.embedding``, ``index_select`` of the
 rows viewed as 16-byte complex128 values), and one K3 launch at tile_e
 256 (the port's) and 512 with its workspace.
+
+``--decode-only`` times LM decoding as ``chip_smoke.py`` phase 3h (b)
+serves it: deepseek-v2-236b (4 of 60 layers: MLA and MoE) and
+mixtral-8x7b (16 of 32 layers: GQA, sliding window, MoE) at full width,
+batch 8, prompt 64, 192 generated tokens, ``launch.serve.load`` and
+``generate``; the median decode step (CUDA events) and the wall.
 """
 import argparse
 import ctypes
@@ -145,6 +152,8 @@ def main():
     ap.add_argument("--gnn-only", action="store_true",
                     help="time only the GNN aggregation's gather and K3 "
                     "at ogb_products' counts")
+    ap.add_argument("--decode-only", action="store_true",
+                    help="time only the LM decode steps of phase 3h (b)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch to time")
     opts = ap.parse_args()
@@ -166,6 +175,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
+    if opts.decode_only:
+        decode_rows(torch, torch.device("cuda", 0), opts.src)
+        return
     if opts.gnn_only:
         build.build_all()
         gnn_rows(torch, torch.device("cuda", 0))
@@ -267,6 +279,34 @@ def main():
         print(f"[{case}] {name}: device ms " + " ".join(f"{t:.4f}"
                                                         for t in ts))
     k2_rows(torch, K, build, libs, plan, h0, ca, ch, m, device_ms)
+
+
+def decode_rows(torch, dev, src, b=8, prompt=64, gen=192):
+    """Decode at full width as phase 3h (b): median step ms over the
+    ``prompt + gen - 1`` steps (CUDA events) and the wall."""
+    import dataclasses
+    import statistics
+    import time
+    from repro_torch.configs import get_spec
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch.train import StepTimer
+    for arch, n_layers in (("deepseek-v2-236b", 4), ("mixtral-8x7b", 16)):
+        cfg = dataclasses.replace(get_spec(arch).config, n_layers=n_layers)
+        model, cache, prompts = lserve.load(cfg, b, prompt, gen, device=dev)
+        torch.cuda.synchronize(dev)
+        timer = StepTimer(dev, warmup=0)
+        t0 = time.perf_counter()
+        out = lserve.generate(model, cache, prompts, gen, span=timer.span)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        steps = [a.elapsed_time(c) for a, c in timer.marks["step"]]
+        if tuple(out.shape) != (b, gen):
+            sys.exit(f"FAIL: {arch} generated {tuple(out.shape)}")
+        print(f"[decode {arch}] src {src}: {n_layers} layers, batch {b}, "
+              f"{len(steps)} steps: median step {statistics.median(steps):.3f}"
+              f" ms (CUDA events), wall {wall:.3f} s", flush=True)
+        del model, cache, prompts, out
+        torch.cuda.empty_cache()
 
 
 def gnn_rows(torch, dev, f=64):

@@ -100,6 +100,13 @@ Phases (any failure exits non-zero and prints no result line):
    full-graph training at ogb_products' published counts (K3 two
    launches a layer a step, counted), sampled minibatch_lg steps and
    batched molecule steps, and ``launch.train --arch gin-tu``;
+3j. the dry-run and roofline tools (``dryrun_phase``): ``python -m
+   repro_torch.launch.dryrun`` as subprocesses, one cell of each family
+   on the pod1 mesh (minitron-4b train_4k, gin-tu ogb_products,
+   dlrm-rm2 train_batch, hits-webgraph webrank_200m) and two on a
+   one-card host mesh, whose roofline step time (H100 data-sheet rates)
+   is printed beside 3i (c)'s and 3g's measured steps; every cell must be
+   ``ok``;
 4. a ``{"kernels": [...]}`` line (K1's entry carries the whole-graph
    path's numbers under ``hits_sweep_bsr``, K3's the GNN's under
    ``gnn``), then the contract's last line.
@@ -1059,13 +1066,16 @@ def main():
     sharded_phase(g, queries, card)
 
     # ------------------- 3g. the example ports and the recsys family
-    recsys_phase()
+    train_ms = recsys_phase()
 
     # ----------------------------------------------- 3h. the LM family
     lm_phase()
 
     # ----------------------------------------------- 3i. the GNN family
     gnn = gnn_phase()
+
+    # ------------------------------- 3j. the dry-run and roofline tools
+    dryrun_phase({"gin-tu": gnn["step_ms"], "dlrm-rm2": train_ms["dlrm-rm2"]})
 
     # ---------------------------------------------------- 4. result lines
     kernels = [
@@ -2204,12 +2214,13 @@ def recsys_phase():
     prior (which must raise the top-k's mean authority); ms of HITS, the
     towers, the scores and the top-k. Its files (the examples' spills,
     bst's checkpoint: ~3.9 GB) go under a temporary directory that is
-    removed however the phase ends."""
+    removed however the phase ends. Returns the median step ms of the
+    three ``launch.train`` runs, by arch."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="smoke_3g_")
     try:
-        _recsys_phase(tmp)
+        return _recsys_phase(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2308,6 +2319,7 @@ def _recsys_phase(tmp):
         return r.stdout, steps, time_re.search(r.stdout), wall
 
     ck_dir = os.path.join(tmp, "bst_ckpt")
+    train_ms = {}
     for arch in ("dlrm-rm2", "dcn-v2", "bst"):
         extra = ["--steps", "20"]
         if arch == "bst":
@@ -2317,6 +2329,7 @@ def _recsys_phase(tmp):
         t = dict(step=float(tm.group(1)), n=int(tm.group(2)),
                  wall_ms=float(tm.group(3)), samples_per_s=int(tm.group(4)),
                  build=float(tm.group(5)), h2d=float(tm.group(6)))
+        train_ms[arch] = t["step"]
         print(f"[3g train {arch}] full CONFIG, batch {big}, 20 steps: "
               f"{timing_line(t, float(tm.group(7)))}; "
               f"loss first {float(steps[0][1]):.4f} (step {steps[0][0]}) "
@@ -2465,6 +2478,147 @@ def _recsys_phase(tmp):
     torch.cuda.empty_cache()
     print(f"[3g] phase 3g: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    return train_ms
+
+
+# ---------------------------------------- phase 3j: the dry-run tools
+DRYRUN_CELLS = (("pod1", "minitron-4b", "train_4k"),
+                ("pod1", "gin-tu", "ogb_products"),
+                ("pod1", "dlrm-rm2", "train_batch"),
+                ("pod1", "hits-webgraph", "webrank_200m"),
+                ("host", "gin-tu", "ogb_products"),
+                ("host", "dlrm-rm2", "train_batch"))
+# the dry-run's counts on a (2, 4) mesh with every redistribution its
+# own (``--strict``: none chosen by DTensor): collective bytes moved by
+# kind, the number of collectives, FLOPs and HBM bytes a device, fixed
+# whatever the torch version. ``tests/test_torch_dryrun.py`` holds them
+# on the host and against the JAX package's HLO; phase 3j on the card's
+# machine
+DRYRUN_PINNED = {
+    ("minitron-4b", "train_4k"): (
+        {"all-reduce": 1466552574016.0, "all-gather": 2378170368.0}, 511,
+        7062096237898814.0, 158729575568652.0),
+    ("gin-tu", "ogb_products"): (
+        {"all-reduce": 12539028480.0, "all-gather": 247447552.0}, 12,
+        742919342077.0, 517659039208.0),
+    ("dlrm-rm2", "train_batch"): (
+        {"all-reduce": 3770305056.0}, 19, 165605957492.0, 81653801832.0),
+}
+# one process: the DRYRUN_PINNED cells on a (2, 4) mesh of meta devices,
+# strict; prints {"arch shape": [by_kind, n_collective_ops, FLOPs, HBM
+# bytes]} as JSON
+DRYRUN_PIN_CODE = r"""
+import json, sys
+from repro_torch.configs import get_spec
+from repro_torch.launch.dryrun import model_cell
+from repro_torch.launch.steps import build_step
+from repro_torch.sparse.dist import Mesh
+mesh = Mesh(("meta",) * 8, (2, 4), ("data", "model"))
+out = {}
+for cell in json.loads(sys.argv[1]):
+    r = model_cell(build_step(get_spec(cell[0]), cell[1]), mesh, "h100-sxm",
+                   strict=True)
+    c, rl = r["collectives"], r["roofline"]
+    out[" ".join(cell)] = [c["by_kind"], c["n_collective_ops"],
+                           rl["flops_per_device"], rl["hbm_bytes_per_device"]]
+print(json.dumps(out))
+"""
+
+
+def dryrun_phase(measured_ms, device="cuda"):
+    """Phase 3j: ``python -m repro_torch.launch.dryrun`` on this
+    machine's host CPU, one subprocess a cell, all started together:
+    ``DRYRUN_CELLS`` (one cell of each family on the pod1 mesh of 256
+    logical devices; gin-tu ogb_products and dlrm-rm2 train_batch on the
+    host mesh of this one card). Prints each cell's status and roofline
+    terms at the H100 SXM data-sheet rates (predictions, not
+    measurements); a cell that is not ``ok`` fails the phase. The host
+    cells' roofline step time is printed beside the step this run
+    measured (``measured_ms``, by arch: 3i (c), 3g). ``device`` is the
+    host mesh's device type ("cpu" rehearses the phase without a card).
+    Its JSONs go under a temporary directory that is removed however the
+    phase ends. The model cells run ``--strict`` (no collective chosen by
+    DTensor), and one more subprocess holds ``DRYRUN_PINNED``'s cells on
+    a (2, 4) mesh to their pinned collectives: this machine's torch
+    places them as the host's does."""
+    import os
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="smoke_3j_")
+    t_phase = time.perf_counter()
+    try:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), TMPDIR=tmp)
+        procs = []
+        for mesh, arch, shape in DRYRUN_CELLS:
+            out = os.path.join(tmp, mesh)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", mesh,
+                 "--out", out, "--device", device, "--strict"], env=env,
+                cwd=tmp, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        pin = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_PIN_CODE,
+             json.dumps([list(c) for c in DRYRUN_PINNED])], env=env, cwd=tmp,
+            text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        procs.append(pin)
+        for p, (mesh, arch, shape) in zip(procs, DRYRUN_CELLS):
+            try:
+                _out, err = p.communicate(timeout=900)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                fail(f"3j: the dry-run of {arch} {shape} {mesh} timed out")
+            check(p.returncode == 0, f"3j: dryrun {arch} {shape} {mesh}: rc "
+                                     f"{p.returncode}\n{err[-3000:]}")
+            with open(os.path.join(tmp, mesh, f"{arch}__{shape}__{mesh}"
+                                   "__baseline.json")) as f:
+                r = json.load(f)
+            check(r["status"] == "ok", f"3j: {arch} {shape} {mesh}: "
+                  f"{r['status']}\n{r.get('traceback', '')}")
+            rl, coll = r["roofline"], r["collectives"]
+            line = (f"[3j dryrun {mesh} {arch} {shape}] ok, "
+                    f"{rl['n_devices']} devices, {r['compile_s']} s on the "
+                    f"host: compute {rl['compute_s'] * 1e3:.3f} ms, memory "
+                    f"{rl['memory_s'] * 1e3:.3f} ms, collective "
+                    f"{rl['collective_s'] * 1e3:.3f} ms (bottleneck "
+                    f"{rl['bottleneck']}); per device "
+                    f"{rl['flops_per_device']:.4e} FLOP, "
+                    f"{rl['hbm_bytes_per_device']:.4e} B HBM, "
+                    f"{rl['collective_bytes_per_device']:.4e} B moved in "
+                    f"{coll['n_collective_ops']} collectives; useful FLOP "
+                    f"ratio {rl['useful_flops_ratio']:.4f}, roofline "
+                    f"fraction {rl['roofline_fraction']:.4f}")
+            if mesh == "host":
+                got = measured_ms[arch]
+                pred = rl["step_time_s"] * 1e3
+                line += (f"; roofline step {pred:.3f} ms against "
+                         f"{got:.3f} ms measured here (median step, CUDA "
+                         f"events): {got / pred:.2f}x")
+            print(line, flush=True)
+        try:
+            out, err = pin.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("3j: the pinned (2, 4) cells timed out")
+        check(pin.returncode == 0, f"3j: pinned cells: rc {pin.returncode}"
+                                   f"\n{err[-3000:]}")
+        got = json.loads(out.strip().splitlines()[-1])
+        for (arch, shape), pinned in DRYRUN_PINNED.items():
+            g = tuple(got[f"{arch} {shape}"])
+            check(g == pinned, f"3j: {arch} {shape} on (2, 4): {g}, pinned "
+                               f"{pinned}")
+            print(f"[3j pinned {arch} {shape}] (2, 4) mesh, strict: "
+                  f"{g[0]} in {g[1]} collectives, {g[2]:.6e} FLOP and "
+                  f"{g[3]:.6e} B HBM a device, as pinned", flush=True)
+    finally:
+        for q in procs:
+            if q.poll() is None:
+                q.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[3j] phase 3j: {time.perf_counter() - t_phase:.1f} s (rates of "
+          f"the last cell: {r['hw']})", flush=True)
 
 
 # ------------------------------------------------------ phase 3h: the LMs
@@ -3222,7 +3376,9 @@ def _gnn_phase(tmp, dev=None):
     from repro_torch.graph import (Graph, SamplerTables, khop_sizes,
                                    sample_khop)
     from repro_torch.kernels import counters, reset_counters
+    from repro_torch.configs import get_spec
     from repro_torch.kernels.ops import EdgeLayouts, GNN_TILE_E
+    from repro_torch.launch.steps import gnn_full_train
     from repro_torch.models import gnn as pg
     from repro_torch.train import (AdamWConfig, init_opt_state,
                                    make_train_step)
@@ -3286,9 +3442,11 @@ def _gnn_phase(tmp, dev=None):
           f"3i (c): K3 launches a step {per_step}, not {2 * cfg.n_layers}")
     check(all(np.isfinite(losses)), f"3i (c): losses {losses}")
     peak = torch.cuda.max_memory_allocated(dev)
-    dh, ep = cfg.d_hidden, -(-e // 4096) * 4096
-    mf = cfg.n_layers * (2 * ep * dh + 4 * n * dh * dh) \
-        + 2 * n * cfg.d_in * dh
+    dh = cfg.d_hidden
+    # the model FLOPs of a step (forward + 2x backward), as the dry-run
+    # counts them
+    mf = gnn_full_train(get_spec("gin-tu"), shape).meta[
+        "model_flops_per_step"] / 3
     t_ops = 3 * mf / PEAK_FLOPS["float32"] * 1e3
     t_bytes = 2 * cfg.n_layers * e * dh * 4 / HBM_BYTES_PER_S * 1e3
     med = statistics.median(times[1:])

@@ -464,6 +464,10 @@ class EdgeLayouts:
     rev: SlotLayout
     n_nodes: int
     scratch: Optional[Scratch]
+    # the dry-run's edges sharded over a device mesh: (mesh, the edges'
+    # placements, whether they are (G, E) per-graph edges); the layouts
+    # are then one device's, of its own edges
+    sharding: Optional[tuple] = None
 
     @staticmethod
     def build(src, dst, n: int, bs: int = 128,
@@ -471,7 +475,17 @@ class EdgeLayouts:
         """Layouts of ``src``/``dst`` (E,) on a graph of n nodes, or of G
         graphs of n nodes each ((G, E) tensors, node ids local to their
         graph): then graph g's nodes are rows g·n..g·n + n - 1 of one
-        flattened edge set, and edge weights are given flattened (G·E,)."""
+        flattened edge set, and edge weights are given flattened (G·E,).
+        ``meta`` edges (the dry-run) get layouts of K3's largest size for
+        their count (``_bound``); a ``DTensor``'s, its local shard's."""
+        from ..models.sharding import is_dtensor
+        if is_dtensor(src):
+            lay = EdgeLayouts.build(src.to_local(), dst.to_local(), n, bs,
+                                    tile_e)
+            return dataclasses.replace(lay, sharding=(
+                src.device_mesh, tuple(src.placements), src.dim() == 2))
+        if src.device.type == "meta":
+            return EdgeLayouts._bound(src, n, bs, tile_e)
         src, dst = torch.as_tensor(src), torch.as_tensor(dst)
         dev = src.device
         src, dst = src.long(), dst.long().to(dev)
@@ -498,6 +512,25 @@ class EdgeLayouts:
 
         return EdgeLayouts(side(dst, src), side(src, dst), n_total,
                            Scratch(dev) if dev.type == "cuda" else None)
+
+    @staticmethod
+    def _bound(src, n: int, bs: int, tile_e: int) -> "EdgeLayouts":
+        """``meta`` layouts at the most slots E edges can take: every
+        block's run padded to whole tiles, at least one a block, so
+        n_tiles <= n_blocks + ceil(E / tile_e)."""
+        n_total = n * (src.shape[0] if src.dim() == 2 else 1)
+        n_blocks = -(-n_total // bs)
+        n_tiles = n_blocks + -(-src.numel() // tile_e)
+
+        def m(k):
+            return torch.empty(k, dtype=torch.int32, device="meta")
+
+        def side():
+            e_pad = n_tiles * tile_e
+            return SlotLayout(m(e_pad), m(e_pad), m(n_tiles), m(e_pad),
+                              m(e_pad), m(n_blocks + 1), n_blocks, n_total,
+                              bs)
+        return EdgeLayouts(side(), side(), n_total, None)
 
     @staticmethod
     def of(src, dst, n: int, bs: int = 128,
@@ -542,15 +575,75 @@ class _Aggregate(torch.autograd.Function):
         return ctx.lay.rev.sum(grad, w, ctx.lay.scratch), None, None
 
 
+def _sharded_places(lay: EdgeLayouts):
+    """(h's placements for the sum, the output's): per-graph edges sum
+    graph-major rows sharded as the graphs are, into the same rows;
+    edges of one graph sum the whole of h into every node, a partial
+    sum on each mesh dim the edges are sharded on."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, epl, per_graph = lay.sharding
+    if per_graph:
+        want = [Shard(0) if p.is_shard(0) else Replicate() for p in epl]
+        return want, want
+    return [Replicate()] * mesh.ndim, \
+        [Partial() if p.is_shard() else Replicate() for p in epl]
+
+
+class _ShardedAggregate(torch.autograd.Function):
+    """``aggregate`` over the dry-run's sharded edges (``DTensor``s):
+    each device runs its own edges' layouts on its local rows; h and the
+    gradient are first redistributed to the placements the sum needs
+    (``shard_like``, an explicit redistribution)."""
+
+    @staticmethod
+    def forward(ctx, h, lay, w):
+        from torch.distributed.tensor import DTensor
+
+        from ..models.sharding import shard_like
+        want, out_pl = _sharded_places(lay)
+        ctx.lay, ctx.h_pl, ctx.w = lay, tuple(h.placements), w
+        hl = shard_like(h, _Placed(want)).to_local()
+        out = lay.fwd.sum(hl, _local(w))
+        return DTensor.from_local(out, lay.sharding[0],
+                                  out_pl, run_check=False, shape=h.shape,
+                                  stride=h.stride())
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+
+        from ..models.sharding import shard_like
+        lay, w = ctx.lay, ctx.w
+        want, out_pl = _sharded_places(lay)
+        gl = shard_like(grad, _Placed(want)).to_local()
+        g = DTensor.from_local(lay.rev.sum(gl, _local(w)), lay.sharding[0],
+                               out_pl,
+                               run_check=False, shape=grad.shape,
+                               stride=grad.stride())
+        return shard_like(g, _Placed(ctx.h_pl)), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class _Placed:
+    placements: tuple
+
+
+def _local(x):
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
 def aggregate(h, lay: EdgeLayouts, edge_w=None):
     """GIN's sum aggregation Σ_{e: dst_e = i} w_e · h[src_e] for every
     node i of ``lay`` (``EdgeLayouts.of(src, dst, n)``), with its
     gradient with respect to ``h``. ``edge_w``: None or (E,) weights (a
     bool mask included) in the edges' order. On the card both directions
     launch K3; on the CPU they run its plain version through the same
-    layouts."""
+    layouts; on ``meta`` tensors (the dry-run) K3 counts its traffic."""
+    w = None if edge_w is None else edge_w.detach().reshape(-1)
+    if lay.sharding is not None:
+        return _ShardedAggregate.apply(h, lay, w)
     if h.shape[0] != lay.n_nodes:
         raise ValueError(f"h has {h.shape[0]} rows, the layouts "
                          f"{lay.n_nodes}")
-    w = None if edge_w is None else edge_w.detach().reshape(-1)
     return _Aggregate.apply(h, lay, w)

@@ -181,9 +181,21 @@ def seg_matmul(blkid, msgs, off, valid, n_blocks: int, *, bs: int = 128,
     scratch: optional ``Scratch`` on msgs' device, the kernel's workspace
         and fold counters (grown as needed); a new one when None.
 
-    CPU tensors run ``seg_matmul_plain``; CUDA tensors launch the kernel.
+    CPU tensors run ``seg_matmul_plain``; CUDA tensors launch the kernel;
+    ``meta`` tensors (the dry-run) give the output's shape and count the
+    kernel's traffic in the active cost model: its operands read once,
+    its output written once, its workspace written and read back.
     """
     acc = _accum(accum_dtype)
+    if msgs.device.type == "meta":
+        from ..launch.hlo_cost import count_kernel
+        out = msgs.new_empty((n_blocks * bs, msgs.shape[1]))
+        ws, _ = seg_scratch_sizes(blkid.shape[0], n_blocks, bs,
+                                  msgs.shape[1], msgs.element_size())
+        reads = (blkid, msgs, off, valid) + \
+            ((tile_ptr,) if tile_ptr is not None else ())
+        count_kernel(reads, (out,), flops=msgs.numel(), extra_bytes=2 * ws)
+        return out
     if not msgs.is_cuda:
         return seg_matmul_plain(blkid, msgs, off, valid, n_blocks, bs=bs,
                                 accum_dtype=acc)

@@ -1,0 +1,1014 @@
+"""Multi-pod dry-run: run every (arch x shape x mesh) cell's step on
+``meta`` tensors and price its per-device roofline terms (port of
+``repro.launch.dryrun``).
+
+The reference lowers and compiles each cell over 512 forced XLA host
+devices and reads FLOPs, bytes and collectives from the HLO. Torch has
+no HLO, so the port runs the step itself, allocating nothing:
+
+* **Model cells** (LM, GNN, recsys). A ``fake`` process group whose
+  world is the mesh's size (rank 0 is this process), a ``DeviceMesh`` of
+  the production mesh's shape and axis names, and every argument a
+  ``DTensor`` over ``meta`` shards, placed by its spec: the reference's
+  ``filter_spec`` then ``_divisible_spec``, each named axis a ``Shard``
+  and the rest ``Replicate``. DTensor propagates the shardings;
+  ``ShardedCost`` counts rank 0's local ops and makes every
+  redistribution itself, so the counts do not follow DTensor's own
+  choices, which differ between torch versions: the models' hints
+  (``shard_hint``, ``shard_like``), a partial sum reduced where a
+  non-linear op consumes it (XLA's choice), views that keep the shards
+  of the dims they merge or split, and its own rules for lookups,
+  scatters, pads and a diagonal's backward. A collective DTensor would
+  still choose is listed in the cell's ``dtensor_choices``; ``strict``
+  makes it an error. The group lives inside ``run_cell`` and is
+  destroyed on the way out.
+* **Ranking cells.** ``make_dryrun_rank_sweep`` (the reference's lives
+  in ``sparse/dist.py``) runs the sweep's modes over a
+  ``sparse.dist.Mesh`` of ``meta`` devices, one process over every
+  shard: per-device FLOPs and bytes are shard 0's ops, collective bytes
+  the mesh's counters, which count each collective once (the
+  reference's ``hlo_analysis.collective_bytes`` counts the entry
+  computation twice).
+
+Everything runs on the host CPU; the roofline is priced at ``--hw``
+(default ``h100-sxm``: data-sheet rates, not measurements). Each cell
+writes the reference's JSON (``status``, ``meta``, ``roofline``,
+``collectives``, ``memory``), so ``benchmarks/roofline_report.py`` reads
+either package's output; ``compile_s`` is the cell's wall seconds here
+(nothing is compiled).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
+      --shape train_4k --mesh pod1 --out results/dryrun_torch
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
+      --include-ranking --mesh pod1
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gin-tu \\
+      --shape ogb_products --mesh host --device cuda  # one card, unsharded
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import time
+import traceback
+
+import torch
+from torch import nn
+from torch.utils._pytree import tree_flatten, tree_map_only
+
+from ..configs import REGISTRY, get_spec
+from ..models.sharding import P, filter_spec, placements
+from ..sparse.dist import Mesh, all_gather, psum
+from ..tree import leaves, tree_map
+from . import hlo_analysis
+from .hlo_cost import _C10D, _COLLECTIVES, StepCost, _is_fake
+from .mesh import make_host_mesh, make_production_mesh
+from .steps import build_step
+
+_MOVED = {"all-reduce": 2.0}  # ring model: an all-reduce moves 2x its output
+
+
+def _axis_size(a, sizes: dict) -> int:
+    if a is None:
+        return 1
+    if isinstance(a, (tuple, list)):
+        n = 1
+        for x in a:
+            n *= sizes.get(x, 1)
+        return n
+    return sizes.get(a, 1)
+
+
+def _divisible_spec(spec, shape, mesh) -> P:
+    """Drop sharding on dims the mesh axes don't divide (B=1 decode, 24
+    heads over model=16, 429-dim cross layers, ...). Correctness first;
+    the roofline records what replication costs."""
+    sizes = dict(zip(mesh.axes, mesh.shape))
+    out = []
+    for i, a in enumerate(spec):
+        if i >= len(shape):
+            out.append(None)
+            continue
+        size = _axis_size(a, sizes)
+        out.append(a if size > 1 and shape[i] % size == 0 else
+                   (a if size == 1 else None))
+    return P(*out)
+
+
+# ---------------------------------------------------------------- model cells
+@contextlib.contextmanager
+def _relaxed_views():
+    """DTensor's ``view`` and ``_unsafe_view`` may redistribute their
+    input, as ``reshape`` may, restored on exit: a product's output can
+    come sharded along a flattened (heads x head_dim) axis that the
+    following unflatten cannot split evenly (8 KV heads over model=16),
+    and DTensor's strict view refuses where a real run would gather."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._ops._view_ops import \
+        register_op_strategy_map
+    aten = torch.ops.aten
+    prop = DTensor._op_dispatcher.sharding_propagator
+    ops = {aten.view.default: torch.Tensor.view,
+           aten._unsafe_view.default: torch.Tensor.view}
+    saved = {op: (prop.op_strategy_funcs[op], prop.op_to_schema_info.get(op))
+             for op in ops}
+    try:
+        for op, local in ops.items():
+            register_op_strategy_map(op, local, schema_info=saved[op][1],
+                                     strict_view=False)
+        prop.propagate_op_sharding.cache_clear()
+        yield
+    finally:
+        for op, (fn, info) in saved.items():
+            prop.op_strategy_funcs[op] = fn
+            if info is not None:
+                prop.op_to_schema_info[op] = info
+        prop.propagate_op_sharding.cache_clear()
+
+
+class ShardedCost(StepCost):
+    """``StepCost`` for the model cells: it makes the step's
+    redistributions itself, as XLA's SPMD partitioner would, and counts
+    their collectives (DTensor's own choices differ between torch
+    versions: masked partials that cannot be redistributed later,
+    strategies missing or failing on index lists with ``None``, a cost
+    model that picks other collectives):
+
+    * ``redistribute``: the models' ``shard_hint`` and ``shard_like``
+      (through ``models.sharding.REDISTRIBUTE`` while the mode is
+      entered), counted by ``localize``;
+    * a partial operand of any op but a linear one over operands placed
+      alike (``_LINEAR``) is all-reduced first;
+    * a view keeps the shards of the dims it merges or splits
+      (``_view_placements``): an einsum's product over a (batch, heads)
+      batch sharded on data and model;
+    * a lookup in a table sharded by rows, with indices not sharded on
+      that mesh dim: each device looks the indices up in its own rows and
+      the outputs are all-reduced (a masked lookup); where the indices
+      are sharded, the table is gathered first;
+    * its backward: each device scatters its output gradient into the
+      table's gradient, placed as the table was in the lookup where the
+      indices are replicated, partial where they are sharded;
+    * a scatter (``index_add``, ``index_copy``, ``index_put``,
+      ``scatter_add``) runs on the target's shards: its index is
+      replicated, its updates sharded as the target along the dims the op
+      does not index and replicated elsewhere (each shard applies the
+      updates that land in it, as a KV-cache write into a
+      position-sharded cache); a replicated target takes the shards of
+      updates sharded along a dim it does not index; a partial target,
+      ``searchsorted`` and ``bincount`` replicate their inputs first;
+    * a constant pad gathers the dims it pads; a diagonal's backward
+      keeps the gradient's shards; leaky_relu and its backward run on the
+      shards of operands placed alike;
+    * a softmax along a sharded dim normalizes each slice, its max and
+      sum all-reduced (``_softmax``).
+
+    Any other collective is DTensor's choice: recorded in ``implicit``
+    by op and kind, and refused under ``strict``."""
+
+    def __init__(self, strict: bool = False):
+        super().__init__()
+        self.lookups = {}  # id(indices) -> the table's placements
+        self.strict = strict
+        # (op, kind) -> output bytes of the collectives DTensor chose itself
+        self.implicit = {}
+        self._op = None
+        self._declined = None
+        self.merges = {}   # a view's merged dims, for the split undoing it
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _is_fake() or not any(issubclass(t, _dtensor()) for t in types):
+            return super().__torch_dispatch__(func, types, args, kwargs)
+        rule = _RULES.get(func._overloadpacket)
+        if self._declined is func:   # a rule left it to DTensor
+            rule, self._declined = None, None
+        if rule is not None:
+            return rule(self, func, args, kwargs)
+        dts = [a for a in tree_flatten((args, kwargs))[0]
+               if isinstance(a, _dtensor())]
+        if any(p.is_partial() for a in dts for p in a.placements) and not (
+                func._overloadpacket in _LINEAR and
+                all(a.placements == dts[0].placements for a in dts)):
+            args, kwargs = tree_map_only(_dtensor(), self.reduce_partial,
+                                         (args, kwargs))
+            with self:
+                return func(*args, **kwargs)
+        self._op = func
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+    def reduce_partial(self, x):
+        """``x`` with its partial mesh dims all-reduced, as XLA reduces a
+        partial dot output where a non-linear op consumes it."""
+        from torch.distributed.tensor import Replicate
+        return self.redistribute(x, [Replicate() if p.is_partial() else p
+                                     for p in x.placements])
+
+    def _count(self, func, args, kwargs, out):
+        if func.namespace in _C10D and _COLLECTIVES.get(func._opname):
+            kind = _COLLECTIVES[func._opname]
+            key = (str(self._op), kind)
+            b = float(sum(t.numel() * t.element_size()
+                          for t in tree_flatten(out)[0]
+                          if isinstance(t, torch.Tensor)))
+            self.implicit[key] = self.implicit.get(key, 0.0) + b
+            if self.strict:
+                raise RuntimeError(
+                    f"DTensor chose a {kind} for {self._op}: the dry-run "
+                    "pins every redistribution (shard_hint or its rules)")
+        super()._count(func, args, kwargs, out)
+
+    def run(self, func, args, kwargs):
+        out = func(*args, **kwargs)
+        if self.counting:
+            self._count(func, args, kwargs, out)
+        return out
+
+    def localize(self, x, want, mesh):
+        """``x``'s local tensor at placements ``want`` (``meta``),
+        counting the collectives of the redistribution: partial to
+        replicated an all-reduce (one over every such mesh dim), partial
+        to sharded a reduce-scatter, sharded to replicated an all-gather,
+        sharded along another dim an all-to-all; replicated to sharded
+        is a local slice."""
+        if not isinstance(x, _dtensor()):
+            return x
+        shape = list(x._local_tensor.shape)
+        b = _numel(shape) * x.element_size()
+        if any(p.is_partial() and not q.is_shard() and mesh.size(d) > 1
+               for d, (p, q) in enumerate(zip(x.placements, want))):
+            self.add_collective("all-reduce", b)
+        for d, (p, q) in enumerate(zip(x.placements, want)):
+            n = mesh.size(d)
+            if p == q or n == 1:
+                continue
+            b = _numel(shape) * x.element_size()
+            if p.is_partial():
+                if q.is_shard():
+                    shape[q.dim] //= n
+                    self.add_collective("reduce-scatter", b / n, b)
+            elif p.is_shard():
+                shape[p.dim] *= n
+                if q.is_shard():
+                    shape[q.dim] //= n
+                    self.add_collective("all-to-all", b)
+                else:
+                    self.add_collective("all-gather", b * n)
+            elif q.is_shard():
+                shape[q.dim] //= n
+        return torch.empty(shape, dtype=x.dtype, device="meta")
+
+    def redistribute(self, x, want):
+        """``x`` at placements ``want`` (``shard_hint``, ``shard_like``
+        and the partial sums the dry-run reduces), counted by
+        ``localize``; differentiable, as ``DTensor.redistribute`` is."""
+        want = list(want)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Redistribute.apply(x, want, self)
+        return _wrap(self.localize(x, want, x.device_mesh), x.device_mesh,
+                     want)
+
+    def __enter__(self):
+        from ..models import sharding
+        self._saved_hook = sharding.REDISTRIBUTE
+        sharding.REDISTRIBUTE = self.redistribute
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from ..models import sharding
+        sharding.REDISTRIBUTE = self._saved_hook
+        return super().__exit__(*exc)
+
+
+# ops that keep a partial input partial when every DTensor operand has
+# the same placements (a sum of partials, a cast, a reduction over it)
+_LINEAR = {torch.ops.aten.add, torch.ops.aten.add_, torch.ops.aten.sub,
+           torch.ops.aten.neg, torch.ops.aten.sum, torch.ops.aten.clone,
+           torch.ops.aten._to_copy, torch.ops.aten.copy_}
+
+
+class _Redistribute(torch.autograd.Function):
+    """``ShardedCost.redistribute`` under autograd: the gradient goes
+    back to the input's placements (a partial input's as replicated, as
+    ``DTensor.redistribute``'s backward does), counted the same way."""
+
+    @staticmethod
+    def forward(ctx, x, want, cost):
+        from torch.distributed.tensor import Replicate
+        ctx.cost = cost
+        ctx.back = [Replicate() if p.is_partial() else p
+                    for p in x.placements]
+        return _wrap(cost.localize(x, want, x.device_mesh), x.device_mesh,
+                     want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.cost.redistribute(grad, ctx.back), None, None
+
+
+def _dtensor():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _numel(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+def _placements_of(x, ndim):
+    from torch.distributed.tensor import Replicate
+    return list(x.placements) if isinstance(x, _dtensor()) \
+        else [Replicate()] * ndim
+
+
+def _wrap(local, mesh, pl):
+    """A DTensor of ``local`` shards at placements ``pl``."""
+    shape = list(local.shape)
+    for d, p in enumerate(pl):
+        if p.is_shard():
+            shape[p.dim] *= mesh.size(d)
+    full = torch.empty(shape, device="meta")
+    return _dtensor().from_local(local, mesh, pl, run_check=False,
+                                 shape=full.shape, stride=full.stride())
+
+
+def _embedding(cost, func, args, kwargs):
+    from torch.distributed.tensor import Replicate
+    weight, indices = args[0], args[1]
+    mesh = next(a for a in args[:2] if isinstance(a, _dtensor())).device_mesh
+    wpl = _placements_of(weight, mesh.ndim)
+    ipl = _placements_of(indices, mesh.ndim)
+    want_w, out_pl, reduce = [], [], 0
+    for d, (wp, ip) in enumerate(zip(wpl, ipl)):
+        if ip.is_shard():
+            want_w.append(Replicate())
+            out_pl.append(ip)
+        elif wp.is_shard(0):
+            want_w.append(wp)
+            out_pl.append(Replicate())
+            reduce += mesh.size(d) > 1
+        elif wp.is_shard(1):
+            want_w.append(wp)
+            out_pl.append(type(wp)(indices.dim()))
+        else:
+            want_w.append(Replicate())
+            out_pl.append(Replicate())
+    i_want = [p if p.is_shard() else Replicate() for p in ipl]
+    cost.lookups[id(indices)] = want_w  # read by the backward
+    w, i = cost.localize(weight, want_w, mesh), \
+        cost.localize(indices, i_want, mesh)
+    out = cost.run(func, (w, i) + tuple(args[2:]), kwargs)
+    for _ in range(reduce):
+        cost.add_collective("all-reduce", out.numel() * out.element_size())
+    return _wrap(out, mesh, out_pl)
+
+
+def _embedding_backward(cost, func, args, kwargs):
+    from torch.distributed.tensor import Partial, Replicate
+    grad, indices, num_weights = args[0], args[1], args[2]
+    mesh = next(a for a in args[:2] if isinstance(a, _dtensor())).device_mesh
+    ipl = _placements_of(indices, mesh.ndim)
+    # the table's placements in the forward lookup (replicated if unseen)
+    wpl = cost.lookups.get(id(indices), [Replicate()] * mesh.ndim)
+    g_want, out_pl, rows = [], [], num_weights
+    for d, (ip, wp) in enumerate(zip(ipl, wpl)):
+        if ip.is_shard():
+            g_want.append(ip)
+            out_pl.append(Partial())
+        elif wp.is_shard(0):
+            g_want.append(Replicate())
+            out_pl.append(wp)
+            rows //= mesh.size(d)
+        elif wp.is_shard(1):
+            g_want.append(type(wp)(grad.dim() - 1))
+            out_pl.append(wp)
+        else:
+            g_want.append(Replicate())
+            out_pl.append(Replicate())
+    i_want = [p if p.is_shard() else Replicate() for p in ipl]
+    g = cost.localize(grad, g_want, mesh)
+    i = cost.localize(indices, i_want, mesh)
+    out = cost.run(func, (g, i, rows) + tuple(args[3:]), kwargs)
+    return _wrap(out, mesh, out_pl)
+
+
+def _index_tensors(func, args):
+    """(indexed dims of ``self`` or None for any, index tensors, the
+    other tensors)."""
+    name = func._overloadpacket.__name__
+    if name.startswith(("index_add", "index_copy", "scatter_add")):
+        dim = args[1] % args[0].dim()
+        if name.startswith("scatter_add"):   # index is per element of src
+            return {dim}, [], [args[2], args[3]]
+        return {dim}, [args[2]], [args[3]]
+    if name.startswith(("index_put", "_index_put_impl")):
+        idx = list(args[1])
+        first = next(k for k, t in enumerate(idx) if t is not None)
+        return set(range(first, args[0].dim())), \
+            [t for t in idx if t is not None], [args[2]]
+    return None, [], []
+
+
+def _scatter(cost, func, args, kwargs):
+    from torch.distributed.tensor import Replicate
+    dt = _dtensor()
+    mesh = next(a for a in tree_flatten((args, kwargs))[0]
+                if isinstance(a, dt)).device_mesh
+    indexed, index, others = _index_tensors(func, args)
+    self_ = args[0]
+    pl = _placements_of(self_, mesh.ndim)
+    rep = [Replicate()] * mesh.ndim
+    local = indexed is not None and not any(p.is_partial() for p in pl)
+    if local:
+        # a replicated target takes the shards of updates sharded along a
+        # dim the op does not index (the gradient of a gather sharded by
+        # batch): each device scatters into its own slice of it
+        for m, p in enumerate(pl):
+            if p.is_shard() or mesh.size(m) == 1:
+                continue
+            q = next((t.placements[m] for t in others if isinstance(t, dt)
+                      and t.placements[m].is_shard()
+                      and t.placements[m].dim not in indexed
+                      and t.placements[m].dim < self_.dim()), None)
+            if q is not None:
+                pl[m] = q
+    # the updates follow the target where it is sharded along a dim the op
+    # does not index; elsewhere each shard takes all of them
+    want = [p if p.is_shard() and p.dim not in indexed else Replicate()
+            for p in pl] if local else rep
+    slots = {id(t): rep for t in index}
+    slots.update({id(t): want for t in others})
+
+    def unwrap(x):
+        if not isinstance(x, dt):  # a host index: every shard holds it
+            return x.to("meta")
+        if local and x is self_:
+            return x._local_tensor if pl == list(x.placements) else \
+                cost.localize(x, pl, mesh)  # (a slice: no collective)
+        return cost.localize(x, slots.get(id(x), rep), mesh)
+    out = cost.run(func, tree_map_only(torch.Tensor, unwrap, args),
+                   tree_map_only(torch.Tensor, unwrap, kwargs))
+    if func._schema.is_mutable:
+        return self_
+    return _wrap(out, mesh, pl if local else rep)
+
+
+def _pad(cost, func, args, kwargs):
+    from torch.distributed.tensor import Replicate
+    x, pad = args[0], args[1]
+    mesh = x.device_mesh
+    padded = {x.dim() - 1 - k // 2 for k, n in enumerate(pad) if n}
+    want = [Replicate() if p.is_partial() or (p.is_shard() and p.dim in
+                                               padded) else p
+            for p in x.placements]
+    out = cost.run(func, (cost.localize(x, want, mesh),) + tuple(args[1:]),
+                   kwargs)
+    return _wrap(out, mesh, want)
+
+
+def _diagonal_backward(cost, func, args, kwargs):
+    from torch.distributed.tensor import Shard
+    grad, sizes, offset, d1, d2 = args[:5]
+    mesh = grad.device_mesh
+    sizes = list(sizes)
+    d1, d2 = d1 % len(sizes), d2 % len(sizes)
+    # grad's leading dims are the input's other dims in order, its last the
+    # diagonal (sharded like dim1 of the input)
+    dims = [k for k in range(len(sizes)) if k not in (d1, d2)] + [d1]
+    pl = []
+    for d, p in enumerate(grad.placements):
+        if p.is_shard():
+            pl.append(Shard(dims[p.dim]))
+            sizes[dims[p.dim]] //= mesh.size(d)
+        else:
+            pl.append(p)
+    out = cost.run(func, (grad._local_tensor, sizes, offset, d1, d2)
+                   + tuple(args[5:]), kwargs)
+    return _wrap(out, mesh, pl)
+
+
+def _to_dtensor(cost, func, args, kwargs):
+    """Leave ``func`` to DTensor, on ``args`` whose partial sums a rule
+    has already reduced (its collectives are DTensor's choice)."""
+    cost._op = cost._declined = func
+    with cost:
+        return func(*args, **kwargs)
+
+
+def _elementwise(cost, func, args, kwargs):
+    """A pointwise op on operands placed alike, run on the shards (torch
+    2.11 has no DTensor rule for leaky_relu: it decomposes the op and
+    runs the parts at global shapes)."""
+    dt = _dtensor()
+    args = tuple(cost.reduce_partial(a) if isinstance(a, dt) else a
+                 for a in args)
+    dts = [a for a in args if isinstance(a, dt)]
+    if any(a.placements != dts[0].placements for a in dts):
+        return _to_dtensor(cost, func, args, kwargs)
+    out = cost.run(func, tuple(a._local_tensor if isinstance(a, dt) else a
+                               for a in args), kwargs)
+    return _wrap(out, dts[0].device_mesh, list(dts[0].placements))
+
+
+def _softmax(cost, func, args, kwargs):
+    """A softmax (or its backward) along a dim its operands are sharded
+    on, placed as XLA places it: each device normalizes its own slice,
+    the max and the sum along the dim all-reduced (the backward's one
+    sum), the output sharded as the input (decode's scores over a
+    position-sharded cache)."""
+    dt = _dtensor()
+    backward = func._overloadpacket is torch.ops.aten._softmax_backward_data
+    xs = [cost.reduce_partial(a) for a in args[:2 if backward else 1]]
+    dim = args[len(xs)] % xs[0].dim()
+    mesh, pl = xs[0].device_mesh, list(xs[0].placements)
+    if any(x.placements != xs[0].placements for x in xs) or not any(
+            p.is_shard(dim) and mesh.size(d) > 1 for d, p in enumerate(pl)):
+        return _to_dtensor(cost, func, tuple(xs) + tuple(args[len(xs):]),
+                           kwargs)
+    out = cost.run(func, tuple(x._local_tensor for x in xs)
+                   + tuple(args[len(xs):]), kwargs)
+    reduced = out.numel() // out.shape[dim] * out.element_size()
+    for _ in range(1 if backward else 2):
+        cost.add_collective("all-reduce", reduced)
+    return _wrap(out, mesh, pl)
+
+
+def _view_groups(ishape, oshape):
+    """The (input dims, output dims) groups a view maps onto each other
+    (size-1 dims alone)."""
+    groups, i, o = [], 0, 0
+    while i < len(ishape) or o < len(oshape):
+        if i < len(ishape) and ishape[i] == 1:
+            groups.append(([i], []))
+            i += 1
+            continue
+        if o < len(oshape) and oshape[o] == 1:
+            groups.append(([], [o]))
+            o += 1
+            continue
+        ins, outs, pi, po = [i], [o], ishape[i], oshape[o]
+        i, o = i + 1, o + 1
+        while pi != po:
+            if pi < po:
+                ins.append(i)
+                pi *= ishape[i]
+                i += 1
+            else:
+                outs.append(o)
+                po *= oshape[o]
+                o += 1
+        groups.append((ins, outs))
+    return groups
+
+
+def _view_placements(x, shape, merges: dict):
+    """A view's output placements, or None to leave it to DTensor. A
+    merge keeps every shard on the merged dim (the (batch, heads) batch
+    of an einsum's product: data and model both) and records which input
+    dim each mesh dim sharded in ``merges``; a split that undoes a
+    recorded merge (same size, placements and factors: the product's
+    output) gives each mesh dim back its dim; any other split gives the
+    input dim's mesh dims to the first output dims they divide."""
+    from torch.distributed.tensor import Shard
+    mesh, pl = x.device_mesh, list(x.placements)
+    if any(p.is_shard() and p.dim >= x.dim() for p in pl):
+        return None
+    ishape = list(x.shape)
+    groups = _view_groups(ishape, shape)
+    rem = list(shape)
+    out = list(pl)
+    for ins, outs in groups:
+        mdims = [d for d, p in enumerate(pl) if p.is_shard() and p.dim in ins]
+        if not mdims:
+            continue
+        if len(outs) == 1:
+            # shards along later input dims must come from later mesh dims
+            order = [pl[d].dim for d in mdims]
+            if order != sorted(order):
+                return None
+            for d in mdims:
+                if rem[outs[0]] % mesh.size(d):
+                    return None
+                rem[outs[0]] //= mesh.size(d)
+                out[d] = Shard(outs[0])
+            if len(ins) > 1:
+                merges[(shape[outs[0]], tuple(mdims))] = (
+                    tuple(ishape[i] for i in ins),
+                    {d: ins.index(pl[d].dim) for d in mdims})
+        elif len(ins) == 1:
+            rec = merges.get((ishape[ins[0]], tuple(mdims)))
+            undo = rec is not None and rec[0] == tuple(shape[o] for o in outs)
+            k = 0
+            for d in mdims:
+                if undo:
+                    k = rec[1][d]
+                while k < len(outs) and rem[outs[k]] % mesh.size(d):
+                    if undo:
+                        return None
+                    k += 1
+                if k == len(outs):
+                    return None
+                rem[outs[k]] //= mesh.size(d)
+                out[d] = Shard(outs[k])
+        else:
+            return None
+    return out
+
+
+def _view(cost, func, args, kwargs):
+    """A view on the shards (see ``_view_placements``); DTensor's own
+    rule where that gives none."""
+    x, shape = args[0], list(args[1])
+    if -1 in shape:
+        known = _numel([s for s in shape if s != -1])
+        shape[shape.index(-1)] = x.numel() // max(known, 1)
+    pl = _view_placements(x, shape, cost.merges)
+    if pl is None:
+        cost._op = func
+        return NotImplemented
+    mesh = x.device_mesh
+    local = list(shape)
+    for d, p in enumerate(pl):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(d)
+    try:
+        out = cost.run(func, (x._local_tensor, local) + tuple(args[2:]),
+                       kwargs)
+    except RuntimeError:
+        # the shard's strides do not allow the view (a wrapped shard is
+        # contiguous where the global tensor was not): a view moves no
+        # bytes, so a fresh shard of the view's shape stands for it
+        out = x._local_tensor.new_empty(local)
+    return _wrap(out, mesh, pl)
+
+
+def _rules():
+    aten = torch.ops.aten
+    rules = {aten.embedding: _embedding,
+             aten.embedding_dense_backward: _embedding_backward,
+             aten.constant_pad_nd: _pad,
+             aten.diagonal_backward: _diagonal_backward,
+             aten.view: _view, aten._unsafe_view: _view,
+             aten.leaky_relu: _elementwise,
+             aten.leaky_relu_backward: _elementwise,
+             aten._softmax: _softmax, aten._softmax_backward_data: _softmax}
+    for op in (aten.index_add, aten.index_add_, aten.index_copy,
+               aten.index_copy_, aten.scatter_add,
+               aten.scatter_add_, aten.index_put, aten.index_put_,
+               aten._index_put_impl_, aten.searchsorted, aten.bincount):
+        rules[op] = _scatter
+    return rules
+
+
+_RULES = _rules()
+
+
+@contextlib.contextmanager
+def fake_device_mesh(mesh: Mesh):
+    """A ``DeviceMesh`` of ``mesh``'s shape and axis names on a ``fake``
+    process group of ``mesh.size`` ranks (this process is rank 0),
+    destroyed on exit, with DTensor's strict views relaxed
+    (``_relaxed_views``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        with _relaxed_views():
+            yield init_device_mesh("cpu", mesh.shape,
+                                   mesh_dim_names=mesh.axes)
+    finally:
+        dist.destroy_process_group()
+
+
+def _place(x, spec, dmesh, mesh):
+    """A ``meta`` tensor as a DTensor of ``meta`` shards placed by
+    ``spec``; anything else (a host scalar) as it is."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, torch.Tensor) or x.device.type != "meta":
+        return x
+    spec = _divisible_spec(filter_spec(spec, mesh), tuple(x.shape), mesh)
+    pl = placements(spec, dmesh)
+    local = list(x.shape)
+    for size, p in zip(dmesh.shape, pl):
+        if isinstance(p, Shard):
+            local[p.dim] //= size
+    t = DTensor.from_local(torch.empty(local, dtype=x.dtype, device="meta"),
+                           dmesh, pl, run_check=False, shape=x.shape,
+                           stride=x.stride())
+    return nn.Parameter(t, requires_grad=x.requires_grad) \
+        if isinstance(x, nn.Parameter) else t
+
+
+def _place_module(mod, spec, dmesh, mesh):
+    """Replace every parameter of a ``ParamTree`` module (in place) by
+    its placed DTensor; ``spec`` is the module's spec tree."""
+    for name, child in mod.named_children():
+        if isinstance(child, nn.ParameterList):
+            for i, p in enumerate(child):
+                child[i] = _place(p, spec[name][i], dmesh, mesh)
+        else:
+            _place_module(child, spec[name], dmesh, mesh)
+    for name, p in list(mod.named_parameters(recurse=False)):
+        setattr(mod, name, _place(p, spec[name], dmesh, mesh))
+    return mod
+
+
+def _place_arg(arg, spec, dmesh, mesh):
+    if isinstance(arg, nn.Module):
+        return _place_module(arg, spec, dmesh, mesh)
+    return tree_map(lambda x, s: _place(x, s, dmesh, mesh), arg, spec)
+
+
+def _local_bytes(tree) -> int:
+    n = 0
+    for x in leaves(tree.to_tree() if isinstance(tree, nn.Module) else tree):
+        if isinstance(x, torch.Tensor):
+            x = x.to_local() if hasattr(x, "to_local") else x
+            n += x.numel() * x.element_size()
+    return n
+
+
+def _outputs(out):
+    """A step's outputs as a tree of tensors (modules as their trees)."""
+    if isinstance(out, nn.Module):
+        return out.to_tree()
+    if isinstance(out, (tuple, list)):
+        return [_outputs(o) for o in out]
+    if isinstance(out, dict):
+        return {k: _outputs(v) for k, v in out.items()}
+    return out if isinstance(out, torch.Tensor) else None
+
+
+def model_cell(step, mesh: Mesh, hw: str, strict: bool = False) -> dict:
+    """Run ``step`` on DTensors over ``mesh`` (a fake group) and price
+    rank 0's counts. ``dtensor_choices`` lists the collectives DTensor
+    chose by itself (its choices differ between torch versions); under
+    ``strict`` the first one raises."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with fake_device_mesh(mesh) as dmesh:
+        args = tuple(_place_arg(a, s, dmesh, mesh)
+                     for a, s in zip(step.args, step.in_specs))
+        cost = ShardedCost(strict)
+        with implicit_replication(), cost:
+            out = step.fn(*args)
+        analysis = hlo_analysis.analyze(
+            cost, step.meta.get("model_flops_per_step", 0), mesh.size,
+            argument_bytes=sum(_local_bytes(a) for a in args),
+            output_bytes=_local_bytes(_outputs(out)), hw=hw)
+    analysis["dtensor_choices"] = {f"{op} {kind}": b for (op, kind), b
+                                   in sorted(cost.implicit.items())}
+    return analysis
+
+
+# -------------------------------------------------------------- ranking cells
+def _seg_sum(vals, ids, n: int):
+    """``jax.ops.segment_sum``: rows of ``vals`` added at ``ids``; an id
+    outside [0, n) adds nothing."""
+    ids = ids.long()
+    keep = ((ids >= 0) & (ids < n)).to(vals.dtype)
+    if vals.dim() > 1:
+        keep = keep[:, None]
+    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                      device=vals.device)
+    return out.index_add_(0, ids.clamp(0, n - 1), vals * keep)
+
+
+def _weighted(x, w):
+    return x * (w[:, None] if x.dim() == 2 else w)
+
+
+def make_dryrun_rank_sweep(mesh: Mesh, n: int, axes, mode: str = "baseline",
+                           n_hub: int = None, shard_scope=None):
+    """The distributed power sweep for the dry-run: edge shards arrive as
+    arguments (per-shard lists of rows, shard s's row at s), ca/ch folded
+    into per-edge weights host-side. ``shard_scope(s)`` is entered around
+    shard s's share of the body (the dry-run counts shard 0's).
+
+    Modes: baseline (replicated vector, 2 psums/sweep) | dual_blocked
+    (block-owned scatters, 2 all-gathers/sweep) | +bf16 (vector/weight
+    storage bf16, fp32 accumulation for norms/residuals) | +compact (hub
+    vectors in the non-dangling space)."""
+    sizes = dict(zip(mesh.axes, mesh.shape))
+    n_shards = _axis_size(tuple(axes), sizes)
+    if n_shards != mesh.size:
+        raise ValueError(f"the sweep shards over every axis; {axes} hold "
+                         f"{n_shards} of {mesh.size}")
+    scope = shard_scope or (lambda s: contextlib.nullcontext())
+    shards = range(n_shards)
+
+    if "dual_blocked" in mode:
+        n_h = n_hub if ("compact" in mode and n_hub) else n
+        nb_a = -(-n // n_shards)
+        nb_h = -(-n_h // n_shards)
+
+        def sweep(h_blk, asrc, adst, aw, am, hsrc, hdst, hw, hm):
+            dt = h_blk[0].dtype
+            # gathered in the storage dtype, widened after the collective
+            h_full = all_gather(mesh, list(h_blk))            # (n_h,)
+            a_blk = []
+            for s in shards:
+                with scope(s):
+                    wm = (aw[s] * am[s]).float()
+                    hw_g = _weighted(h_full[s].float().index_select(
+                        0, asrc[s].long()), wm)
+                    a_blk.append(_seg_sum(hw_g, adst[s].long() - s * nb_a,
+                                          nb_a).to(dt))
+            a_full = all_gather(mesh, a_blk)                  # (n,)
+            h_new, parts = [], []
+            for s in shards:
+                with scope(s):
+                    wm = (hw[s] * hm[s]).float()
+                    aw_g = _weighted(a_full[s].float().index_select(
+                        0, hsrc[s].long()), wm)
+                    h_new.append(_seg_sum(aw_g, hdst[s].long() - s * nb_h,
+                                          nb_h))
+                    parts.append(h_new[s].abs().sum())
+            tot = psum(mesh, parts)
+            out = []
+            for s in shards:
+                with scope(s):
+                    out.append((h_new[s] / (tot[s] + 1e-30)).to(dt))
+            return out, a_blk
+
+        return sweep
+
+    def sweep(h, src, dst, w, mask):
+        dt = h[0].dtype
+        parts = []
+        for s in shards:
+            with scope(s):
+                wm = w[s] * mask[s]
+                parts.append(_seg_sum(_weighted(
+                    h[s].index_select(0, src[s].long()), wm), dst[s], n))
+        a = psum(mesh, parts)
+        parts = []
+        for s in shards:
+            with scope(s):
+                wm = w[s] * mask[s]
+                parts.append(_seg_sum(_weighted(
+                    a[s].index_select(0, dst[s].long()), wm), src[s], n))
+        h_new = psum(mesh, parts)
+        out = []
+        for s in shards:
+            with scope(s):
+                hf = h_new[s].float()
+                tot = hf.abs().sum(dim=0, keepdim=hf.dim() > 1)
+                out.append((hf / (tot + 1e-30)).to(dt))
+        return out, a
+
+    return sweep
+
+
+def _shard_arg(mesh: Mesh, x, spec):
+    """A ranking argument on the mesh: sharded over every axis (the edge
+    shards and blocked vectors: row s on shard s) or replicated."""
+    return mesh.shard_rows(x) if len(spec) and spec[0] is not None \
+        else mesh.replicate(x)
+
+
+def rank_cell(spec, shape_name: str, mesh: Mesh, mode: str, hw: str) -> dict:
+    step = build_step(spec, shape_name, n_devices=mesh.size, mode=mode)
+    shp = spec.shapes[shape_name]
+    n_hub = int(shp["n_nodes"] * (1 - shp.get("dangling_frac", 0.0)))
+    cost = StepCost()
+    fn = make_dryrun_rank_sweep(mesh, shp["n_nodes"], axes=mesh.axes,
+                                mode=mode, n_hub=n_hub,
+                                shard_scope=lambda s: cost.only(s == 0))
+    args = [_shard_arg(mesh, a, filter_spec(s, mesh))
+            for a, s in zip(step.args, step.in_specs)]
+    mesh.reset_counters()
+    with cost, cost.only(False):
+        fn(*args)
+    out_b = {k: float(v) for k, v in mesh.collective_bytes.items()}
+    moved = {k: v * _MOVED.get(k, 1.0) for k, v in out_b.items()}
+    coll = {"total_bytes": sum(moved.values()), "by_kind": moved,
+            "output_bytes_by_kind": out_b,
+            "n_collective_ops": mesh.collective_ops}
+    arg_b = sum(a[0].numel() * a[0].element_size() for a in args)
+    return step, hlo_analysis.analyze(
+        cost, step.meta.get("model_flops_per_step", 0), mesh.size,
+        collectives=coll, argument_bytes=arg_b, hw=hw)
+
+
+# ---------------------------------------------------------------------- cells
+def make_mesh(mesh_name: str, device="cuda") -> Mesh:
+    if mesh_name == "host":
+        return make_host_mesh(device=device)
+    return make_production_mesh(multi_pod=mesh_name == "pod2")
+
+
+def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: str,
+             mode: str = "baseline", force: bool = False,
+             hw: str = hlo_analysis.DEFAULT_HW, device="cuda",
+             strict: bool = False) -> dict:
+    """One cell: its JSON under ``out_dir`` (an ``ok`` or ``skipped``
+    result there is reused unless ``force``; an error is retried).
+    ``strict``: a model cell where DTensor would choose a collective
+    itself is an error (``model_cell``)."""
+    os.makedirs(out_dir, exist_ok=True)
+    tag = f"{arch}__{shape_name}__{mesh_name}__{mode}"
+    out_path = os.path.join(out_dir, tag + ".json")
+    if os.path.exists(out_path) and not force:
+        with open(out_path) as f:
+            cached = json.load(f)
+        if cached.get("status") in ("ok", "skipped"):
+            return cached  # errors are always retried
+
+    spec = get_spec(arch)
+    skip = spec.skip_shapes.get(shape_name)
+    if skip:
+        result = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+                  "mode": mode, "status": "skipped", "reason": skip}
+        with open(out_path, "w") as f:
+            json.dump(result, f, indent=1)
+        return result
+
+    t0 = time.time()
+    try:
+        mesh = make_mesh(mesh_name, device)
+        if spec.family == "ranking":
+            step, analysis = rank_cell(spec, shape_name, mesh, mode, hw)
+        else:
+            step = build_step(spec, shape_name, mode=mode)
+            analysis = model_cell(step, mesh, hw, strict)
+        result = {
+            "arch": arch, "shape": shape_name, "mesh": mesh_name,
+            "mode": mode, "status": "ok",
+            "compile_s": round(time.time() - t0, 1),
+            "hw": hlo_analysis.hardware(hw).describe(mesh.size),
+            "meta": {k: v for k, v in step.meta.items()
+                     if isinstance(v, (int, float, str))},
+            **analysis,
+        }
+    except Exception as e:  # noqa: BLE001 — record the failure, keep sweeping
+        result = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+                  "mode": mode, "status": "error", "error": repr(e),
+                  "traceback": traceback.format_exc()[-2000:],
+                  "compile_s": round(time.time() - t0, 1)}
+    with open(out_path, "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="pod1", choices=["pod1", "pod2", "host"],
+                    help="host: the visible devices of --device (one card)")
+    ap.add_argument("--mode", default="baseline")
+    ap.add_argument("--out", default="results/dryrun_torch")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--include-ranking", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--hw", default=hlo_analysis.DEFAULT_HW,
+                    choices=sorted(hlo_analysis.HARDWARE))
+    ap.add_argument("--device", default="cuda",
+                    help="the device type of --mesh host")
+    ap.add_argument("--strict", action="store_true",
+                    help="a model cell whose collectives DTensor would "
+                    "choose itself is an error")
+    args = ap.parse_args(argv)
+
+    cells = []
+    if args.all:
+        for arch_id, spec in REGISTRY.items():
+            if spec.family == "ranking" and not args.include_ranking:
+                continue
+            for shape_name in spec.shapes:
+                cells.append((arch_id, shape_name))
+    else:
+        if args.arch is None:
+            ap.error("give --arch or --all")
+        spec = get_spec(args.arch)
+        shapes = [args.shape] if args.shape else list(spec.shapes)
+        cells = [(args.arch, s) for s in shapes]
+
+    for arch_id, shape_name in cells:
+        r = run_cell(arch_id, shape_name, args.mesh, args.out, args.mode,
+                     args.force, args.hw, args.device, args.strict)
+        status = r["status"]
+        extra = ""
+        if status == "ok":
+            rl = r["roofline"]
+            extra = (f" bottleneck={rl['bottleneck']}"
+                     f" frac={rl['roofline_fraction']:.3f}"
+                     f" compile={r['compile_s']}s"
+                     f" dtensor_choices={len(r.get('dtensor_choices', {}))}")
+        elif status == "error":
+            extra = " " + r["error"][:120]
+        print(f"[{status:7s}] {arch_id:22s} {shape_name:14s} {args.mesh}{extra}",
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -193,9 +193,10 @@ def gin_sampled_batched_loss(params, batch, cfg: GINConfig, n_seeds: int):
     if lay is None and cfg.agg != "onehot":
         lay = EdgeLayouts.of(src, dst, n)
     w = emask.to(h.dtype)
+    axes = ("pod", "data", "model")  # the groups over the whole mesh
     for i in range(params["layers"]["eps"].shape[0]):
         lp = _layer(params, i)
-        h = shard_hint(h, DP, None, None)
+        h = shard_hint(h, axes, None, None)
         if cfg.agg == "onehot":
             oh_src = _onehot(src, n, h.dtype)                    # (G,E,n)
             oh_dst = _onehot(dst, n, h.dtype)
@@ -204,7 +205,8 @@ def gin_sampled_batched_loss(params, batch, cfg: GINConfig, n_seeds: int):
             agg = torch.einsum("gef,gen->gnf", msgs, oh_dst)
         else:
             agg = aggregate(h.reshape(g * n, -1), lay, w).reshape(h.shape)
-        h = shard_hint(_mlp((1.0 + lp["eps"]) * h + agg, lp), DP, None, None)
+        h = shard_hint(_mlp((1.0 + lp["eps"]) * h + agg, lp), axes, None,
+                       None)
     logits = h[:, :n_seeds] @ params["classifier"]              # (G,S,C)
     return torch.mean(_nll(logits, batch["labels"]))
 
@@ -212,7 +214,9 @@ def gin_sampled_batched_loss(params, batch, cfg: GINConfig, n_seeds: int):
 def node_loss(params, batch, cfg: GINConfig):
     """The three losses read the edges' layouts from ``batch["lay"]``
     when the batch carries them."""
-    logits = gin_node_logits(params, batch["x"], batch["src"], batch["dst"],
+    logits = gin_node_logits(params, batch["x"],
+                             shard_hint(batch["src"], DP),
+                             shard_hint(batch["dst"], DP),
                              lay=batch.get("lay"))
     nll = _nll(logits, batch["labels"])
     mask = batch.get("train_mask")

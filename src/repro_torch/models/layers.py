@@ -88,8 +88,10 @@ def chunked_attention(q, k, v, *, causal=True, window=None, chunk=1024,
     scale = _inv_sqrt(dh)
     nchunks = -(-skv // chunk)
     pad = nchunks * chunk - skv
-    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    kp, vp = k, v
+    if pad:  # (F.pad by 0 only copies)
+        kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     kpos_full = torch.arange(nchunks * chunk, device=dev)
     kpos_full = torch.where(kpos_full < skv, kpos_full, 2 ** 30)
     qpos = q_offset + torch.arange(sq, device=dev)

@@ -5,8 +5,9 @@ Dispatch as the reference: an f32 router, softmax, top-k (ties to the
 lower index, as ``lax.top_k``: a stable descending sort), renormalised
 weights; the Switch aux loss from exact per-expert counts; the flattened
 (token, k) slots stable-sorted by expert, each slot's position within
-its expert from ``searchsorted`` starts; a static (E, C, d) buffer where
-a slot at position >= C is dropped; dense grouped expert products over
+its expert from the start of its expert's run (the exclusive cumsum of
+the per-expert counts); a static (E, C, d) buffer where a slot at
+position >= C is dropped; dense grouped expert products over
 every expert; the slots' outputs gathered back (fill 0 where dropped),
 weighted and summed per token.
 
@@ -44,32 +45,34 @@ def _dispatch(x, router_w, top_k: int, c: int):
     t, d = x.shape
     e = router_w.shape[1]
     dev = x.device
-    logits = x.float() @ router_w.float()                  # (T, E)
+    # (T, E): each token's logit for every expert (sharded, tokens on DP)
+    logits = shard_hint(x.float() @ router_w.float(), DP, None)
     gates = torch.softmax(logits, dim=-1)
     topw, topi = topk(gates, top_k)                        # (T, k)
     topw = topw / topw.sum(dim=-1, keepdim=True)
 
     # aux loss (Switch-style): E * sum_e f_e * P_e
     me = gates.mean(dim=0)
-    ce_frac = torch.bincount(topi.reshape(-1), minlength=e).float() \
-        / (t * top_k)
+    flat_e = topi.reshape(-1)                              # (T*k,)
+    counts = torch.zeros(e, dtype=torch.long, device=dev).index_add(
+        0, flat_e, torch.ones_like(flat_e))                # per expert
+    ce_frac = counts.float() / (t * top_k)
     aux = e * (ce_frac * me).sum()
 
-    flat_e = topi.reshape(-1)                              # (T*k,)
     order = torch.argsort(flat_e, stable=True)
     e_s = flat_e[order]
-    starts = torch.searchsorted(e_s, torch.arange(e, device=dev,
-                                                  dtype=e_s.dtype))
+    starts = torch.cumsum(counts, 0) - counts              # sorted run starts
     pos_s = torch.arange(t * top_k, device=dev) - starts[e_s]
-    pos = torch.empty_like(pos_s)
-    pos[order] = pos_s                                     # per flat slot
+    pos = torch.empty_like(pos_s).index_put((order,), pos_s)  # per flat slot
     keep = pos < c
     slot = torch.where(keep, flat_e * c + pos, -1)         # into (E*C)
 
     # the buffer: entry (e, p) holds the token of the slot routed there
-    src = torch.full((e * c,), -1, dtype=torch.long, device=dev)
+    # (a dropped slot writes the extra entry E*C, cut off after)
     flat_t = torch.arange(t, device=dev).repeat_interleave(top_k)
-    src[slot[keep]] = flat_t[keep]
+    src = torch.full((e * c + 1,), -1, dtype=torch.long, device=dev
+                     ).index_put((torch.where(keep, slot, e * c),),
+                                 flat_t)[:e * c]
     buf = F.embedding(src.clamp(min=0), x)
     buf = torch.where((src >= 0)[:, None], buf, 0).reshape(e, c, d)
 

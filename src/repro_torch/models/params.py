@@ -68,7 +68,12 @@ class Group(ParamTree):
                     else nn.Parameter(x))
 
 
-def generator(seed: int, device) -> torch.Generator:
+def generator(seed: int, device):
+    """A seeded generator on ``device``; None on ``meta``, where nothing
+    is drawn (a model built there has shapes and dtypes only: the
+    dry-run's step builders)."""
+    if torch.device(device).type == "meta":
+        return None
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
     return g

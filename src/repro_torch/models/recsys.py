@@ -42,7 +42,7 @@ from .layers import chunked_attention, dense_mlp
 from .params import Group, ParamTree
 from .params import generator as _gen
 from .params import normal as _normal
-from .sharding import DP, shard_hint
+from .sharding import DP, P, shard_hint
 
 
 # ------------------------------------------------------------ the modules
@@ -155,6 +155,16 @@ class DLRM(RecsysModel):
         return dlrm_loss(self, batch, self.cfg, self.offsets)
 
 
+def dlrm_specs(cfg: DLRMConfig):
+    return {
+        "table": P("model", None),
+        "bot": {"w": tuple(P(None, None) for _ in range(len(cfg.bot_mlp) - 1)),
+                "b": tuple(P(None) for _ in range(len(cfg.bot_mlp) - 1))},
+        "top": {"w": tuple(P(None, None) for _ in range(len(cfg.top_mlp))),
+                "b": tuple(P(None) for _ in range(len(cfg.top_mlp)))},
+    }
+
+
 def dlrm_logits(params, dense, sparse_ids, cfg: DLRMConfig, offsets):
     d = _mlp_apply(params["bot"], dense, final_act=True)      # (B, dim)
     e = embedding_lookup(params["table"], sparse_ids, offsets)  # (B, F, dim)
@@ -212,6 +222,17 @@ class DCN(RecsysModel):
         return dcn_loss(self, batch, self.cfg, self.offsets)
 
 
+def dcn_specs(cfg: DCNConfig):
+    return {
+        "table": P("model", None),
+        "cross_w": P(None, None, "model"),
+        "cross_b": P(None, None),
+        "deep": {"w": (P(None, "model"), P("model", None), P(None, None)),
+                 "b": (P("model"), P(None), P(None))},
+        "final": {"w": (P(None, None),), "b": (P(None),)},
+    }
+
+
 def dcn_logits(params, dense, sparse_ids, cfg: DCNConfig, offsets):
     e = embedding_lookup(params["table"], sparse_ids, offsets)
     x0 = torch.cat([dense, e.reshape(e.shape[0], -1)], dim=1)   # (B, d0)
@@ -267,12 +288,25 @@ class BST(RecsysModel):
         return bst_loss(self, batch, self.cfg)
 
 
+def bst_specs(cfg: BSTConfig):
+    return {
+        "table": P("model", None),
+        "pos": P(None, None),
+        "blocks": {k: P(None, None, None) for k in
+                   ("wq", "wk", "wv", "wo", "ff1", "ff2")},
+        "mlp": {"w": (P(None, "model"), P("model", None), P(None, None),
+                      P(None, None)),
+                "b": (P("model"), P(None), P(None), P(None))},
+    }
+
+
 def bst_logits(params, hist_ids, target_id, cfg: BSTConfig):
     """hist_ids: (B, seq_len); target_id: (B,)."""
     table = params["table"]
     ids = torch.cat([_ids(hist_ids, table.device),
                      _ids(target_id, table.device)[:, None]], dim=1)
-    x = F.embedding(ids, table) + params["pos"][None]
+    x = shard_hint(F.embedding(ids, table) + params["pos"][None],
+                   DP, None, None)
     b, s, d = x.shape
     h, dh = cfg.n_heads, cfg.d_head
     bp = params["blocks"]
@@ -312,6 +346,17 @@ class TwoTower(RecsysModel):
 
     def loss(self, batch):
         return twotower_loss(self, batch, self.cfg)
+
+
+def twotower_specs(cfg: TwoTowerConfig):
+    t3 = {"w": (P(None, "model"), P("model", None), P(None, None)),
+          "b": (P("model"), P(None), P(None))}
+    return {
+        "user_table": P("model", None),
+        "item_table": P("model", None),
+        "user_tower": t3,
+        "item_tower": t3,
+    }
 
 
 def init_twotower_params(cfg: TwoTowerConfig, seed: int = 0,

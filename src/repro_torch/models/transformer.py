@@ -35,8 +35,9 @@ up-projected keys and values.
 
 Init: normal x 0.02 (ones for the norms, an f32 router), drawn from a
 seeded ``torch.Generator`` leaf by leaf in the tree's order.
-``param_specs``/``cache_specs`` (the dry-run's PartitionSpecs) come with
-the dry-run tools (ROADMAP item 11).
+``param_specs``/``cache_specs`` are the reference's logical
+PartitionSpecs, which the dry-run (``launch/dryrun.py``) filters against
+its mesh and places each tensor by.
 """
 from __future__ import annotations
 
@@ -56,7 +57,7 @@ from .layers import (_inv_sqrt, chunked_attention, chunked_softmax_xent,
                      decode_attention, mlp_swiglu, rms_norm, rope)
 from .moe import moe_ffn, moe_ffn_vsharded
 from .params import Group, generator, normal
-from .sharding import DP, shard_hint
+from .sharding import DP, P, is_dtensor, shard_hint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +176,75 @@ def param_shapes(cfg: TransformerConfig):
     }
 
 
+# ----------------------------------------------------------------- sharding
+def param_specs(cfg: TransformerConfig):
+    """Logical PartitionSpecs (filtered against the mesh when placed)."""
+    fs = "data" if cfg.fsdp else None
+    ep_on_model = cfg.is_moe and cfg.n_experts >= 16
+    if cfg.attn_type == "mla":
+        attn = {
+            "w_uq": P(None, fs, "model", None),
+            "w_dkv": P(None, fs, None),
+            "w_uk": P(None, fs, "model", None),
+            "w_uv": P(None, fs, "model", None),
+            "wo": P(None, "model", None, fs),
+        }
+        if cfg.q_lora_rank:
+            attn["w_dq"] = P(None, fs, None)
+    else:
+        attn = {
+            "wq": P(None, fs, "model", None),
+            "wk": P(None, fs, "model", None) if cfg.n_kv_heads >= 16
+            else P(None, fs, None, None),
+            "wv": P(None, fs, "model", None) if cfg.n_kv_heads >= 16
+            else P(None, fs, None, None),
+            "wo": P(None, "model", None, fs),
+        }
+    if cfg.is_moe:
+        if ep_on_model:
+            ffn = {
+                "router": P(None, fs, None),
+                "experts_w1": P(None, "model", fs, None),
+                "experts_w3": P(None, "model", fs, None),
+                "experts_w2": P(None, "model", None, fs),
+            }
+        else:
+            ffn = {
+                "router": P(None, fs, None),
+                "experts_w1": P(None, None, fs, "model"),
+                "experts_w3": P(None, None, fs, "model"),
+                "experts_w2": P(None, None, "model", fs),
+            }
+        if cfg.n_shared:
+            ffn.update({
+                "shared_w1": P(None, fs, "model"),
+                "shared_w3": P(None, fs, "model"),
+                "shared_w2": P(None, "model", fs),
+            })
+    elif cfg.mlp_type == "relu2":
+        ffn = {
+            "w1": P(None, fs, "model"),
+            "w2": P(None, "model", fs),
+        }
+    else:
+        ffn = {
+            "w1": P(None, fs, "model"),
+            "w3": P(None, fs, "model"),
+            "w2": P(None, "model", fs),
+        }
+    return {
+        "embed": P("model", fs),
+        "layers": {
+            "ln1": P(None, None),
+            "ln2": P(None, None),
+            "attn": attn,
+            "ffn": ffn,
+        },
+        "final_ln": P(None),
+        "unembed": P(fs, "model"),
+    }
+
+
 _NORMS = ("k=ln1", "k=ln2", "k=final_ln")
 
 
@@ -282,7 +352,7 @@ def _ffn_block(x, fp, cfg: TransformerConfig):
                            capacity_factor=cfg.capacity_factor,
                            ep_on_model=cfg.n_experts >= 16,
                            c_shard_dp=cfg.moe_c_shard_dp)
-    out = out.reshape(b, s, d)
+    out = shard_hint(out, DP, None).reshape(b, s, d)  # tokens back on DP
     if cfg.n_shared:
         out = out + mlp_swiglu(x, fp["shared_w1"].to(cdt),
                                fp["shared_w3"].to(cdt),
@@ -328,8 +398,11 @@ def loss_fn(params, batch, cfg: TransformerConfig, aux_weight: float = 0.01):
     x, aux = forward(params, batch["tokens"], cfg)
     b, s, d = x.shape
     labels = torch.as_tensor(batch["labels"], device=x.device)
+    # the vocab chunks slice the whole unembedding (sharded, it is
+    # gathered first, as XLA gathers it for its dynamic slices)
     ce = chunked_softmax_xent(x.reshape(b * s, d),
-                              params["unembed"].to(cfg.cdt()),
+                              shard_hint(params["unembed"].to(cfg.cdt()),
+                                         None, None),
                               labels.reshape(-1), chunk=cfg.vocab_chunk)
     return ce + aux_weight * aux / max(cfg.n_layers, 1)
 
@@ -353,10 +426,31 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
             "v": z(cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.d_head)}
 
 
+def cache_specs(cfg: TransformerConfig):
+    """Sequence dim sharded over "model" (cache SP) unless SWA rolling."""
+    sdim = None if cfg.window else "model"
+    if cfg.attn_type == "mla":
+        return {"ckv": P(None, DP, sdim, None), "kr": P(None, DP, sdim, None)}
+    return {"k": P(None, DP, sdim, None, None),
+            "v": P(None, DP, sdim, None, None)}
+
+
 def _decode_ffn(x, lp, cfg):
     h2 = rms_norm(x, lp["ln2"].to(cfg.cdt()))
     f, _ = _ffn_block(h2[:, None], lp["ffn"], cfg)
     return x + f[:, 0]
+
+
+def _write_slot(cache_l, slot: int, new):
+    """``cache_l[:, slot] = new``. The dry-run's position-sharded cache
+    (a ``DTensor``) takes it as one ``index_copy_`` on its shards: a
+    select on that axis would gather it."""
+    if is_dtensor(cache_l):
+        cache_l.index_copy_(1, torch.full((1,), slot, dtype=torch.long,
+                                          device=cache_l.device),
+                            new[:, None])
+    else:
+        cache_l[:, slot] = new
 
 
 def _decode_layer_gqa(x, lp, cache, i, pos, slot, cfg):
@@ -370,8 +464,8 @@ def _decode_layer_gqa(x, lp, cache, i, pos, slot, cfg):
     q = rope(q[:, None], posv, cfg.rope_base)[:, 0]
     k = rope(k[:, None], posv, cfg.rope_base)[:, 0]
     kc, vc = cache["k"][i], cache["v"][i]
-    kc[:, slot] = k
-    vc[:, slot] = v
+    _write_slot(kc, slot, k)
+    _write_slot(vc, slot, v)
     out = decode_attention(q, kc, vc, length=min(pos + 1, kc.shape[1]),
                            window=None)  # rolling buffer already bounds SWA
     x = x + torch.einsum("bhv,hvd->bd", out, ap["wo"].to(cdt))
@@ -396,8 +490,8 @@ def _decode_layer_mla(x, lp, cache, i, pos, slot, cfg):
     kr_new = rope(ckv_new_full[:, None, None, cfg.kv_lora_rank:], posv,
                   cfg.rope_base)[:, 0, 0]                  # (B,rope)
     ckv, krc = cache["ckv"][i], cache["kr"][i]
-    ckv[:, slot] = ckv_new_full[:, :cfg.kv_lora_rank]
-    krc[:, slot] = kr_new
+    _write_slot(ckv, slot, ckv_new_full[:, :cfg.kv_lora_rank])
+    _write_slot(krc, slot, kr_new)
     # absorb w_uk into q: q_lat (B,H,kvr)
     q_lat = torch.einsum("bhn,rhn->bhr", qn, ap["w_uk"].to(cdt))
     scores = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv.float()) +

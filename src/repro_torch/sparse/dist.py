@@ -38,7 +38,7 @@ runs inside a ``torch.profiler.record_function`` range (``dist.psum``,
 profiler trace splits the device time between them.
 
 ``make_dryrun_rank_sweep`` is not here: it stays with its only caller,
-``launch/dryrun.py`` (not ported).
+``launch/dryrun.py``.
 """
 from __future__ import annotations
 
@@ -70,6 +70,7 @@ class Mesh:
             raise ValueError(f"mesh shape {self.shape} over axes {self.axes}"
                              f" does not hold {len(self.devices)} devices")
         self.collective_bytes: Dict[str, int] = {}
+        self.collective_ops = 0
         self.segment_sums = 0
 
     @property
@@ -81,11 +82,13 @@ class Mesh:
 
     def reset_counters(self):
         self.collective_bytes = {}
+        self.collective_ops = 0
         self.segment_sums = 0
 
     def _count(self, kind: str, t: torch.Tensor):
         self.collective_bytes[kind] = (self.collective_bytes.get(kind, 0)
                                        + t.numel() * t.element_size())
+        self.collective_ops += 1
 
     def replicate(self, t: torch.Tensor):
         """``t`` on every shard's device (one copy per distinct device)."""

@@ -18,10 +18,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 
 import numpy as np
 import torch
 
+from ..models.sharding import shard_like
 from ..tree import leaves, tree_map
 
 CHUNK = 1 << 26  # elements of a leaf updated at once (256 MB of f32)
@@ -88,15 +90,25 @@ def clip_by_global_norm(grads, clip):
     return tree_map(sc, grads), gn
 
 
+def _chunks(p, g, m, v):
+    """(p, g, m, v) in flat chunks of ``CHUNK`` elements. A ``DTensor``
+    leaf (the dry-run's sharded step) updates whole: the update is
+    elementwise, so each device updates its own shard, and flattening a
+    leaf sharded on an inner axis would regroup its shards."""
+    dt = sys.modules.get("torch.distributed.tensor")  # loaded if p is one
+    if dt is not None and isinstance(p, dt.DTensor):
+        return [(p, g, m, v)]
+    pf, mf, vf = (t.view(-1) for t in (p, m, v))
+    gf = g.reshape(-1)  # a gradient may be strided (unembed's is transposed)
+    return [(pf[s:s + CHUNK], gf[s:s + CHUNK], mf[s:s + CHUNK],
+             vf[s:s + CHUNK]) for s in range(0, pf.numel(), CHUNK)]
+
+
 def _update_leaf(p, g, m, v, lr, bc1, bc2, cfg: AdamWConfig):
     """One leaf's AdamW step, in place, chunk by chunk:
     m = b1*m + (1-b1)*g; v = b2*v + (1-b2)*g²; delta = (m/bc1) /
     (sqrt(v/bc2) + eps) + wd*p; p = p - lr*delta."""
-    pf, mf, vf = (t.view(-1) for t in (p, m, v))
-    gf = g.reshape(-1)  # a gradient may be strided (unembed's is transposed)
-    for s in range(0, pf.numel(), CHUNK):
-        sl = slice(s, s + CHUNK)
-        pc, gc, mc, vc = pf[sl], gf[sl], mf[sl], vf[sl]
+    for pc, gc, mc, vc in _chunks(p, g, m, v):
         mc.mul_(cfg.b1).add_(gc * (1 - cfg.b1))
         vc.mul_(cfg.b2).add_(gc.square().mul_(1 - cfg.b2))
         den = (vc / bc2).sqrt_().add_(cfg.eps)
@@ -114,6 +126,9 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     (params, state, {"lr", "grad_norm"}) like the reference."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, int(step))
+    # (sharded, as the dry-run runs it: each gradient reduced to its
+    # parameter's placements, the data-parallel all-reduce)
+    grads = tree_map(shard_like, grads, _params_tree(params))
     grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
     f = np.float32
     k = f(int(step))
@@ -124,3 +139,14 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
         _update_leaf(p, g, m, v, lr, bc1, bc2, cfg)
     state["step"] = step.to(torch.int32)
     return params, state, {"lr": lr, "grad_norm": gn}
+
+
+def opt_state_specs(param_specs_tree):
+    """Optimizer-state PartitionSpecs mirroring the param specs (``step``
+    is a host scalar: replicated)."""
+    from ..models.sharding import P
+    return {
+        "m": param_specs_tree,
+        "v": param_specs_tree,
+        "step": P(),
+    }
