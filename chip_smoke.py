@@ -2486,60 +2486,97 @@ DRYRUN_CELLS = (("pod1", "minitron-4b", "train_4k"),
                 ("pod1", "gin-tu", "ogb_products"),
                 ("pod1", "dlrm-rm2", "train_batch"),
                 ("pod1", "hits-webgraph", "webrank_200m"),
+                ("pod1", "mixtral-8x7b", "train_4k"),
+                ("pod1", "minitron-8b", "train_4k"),
                 ("host", "gin-tu", "ogb_products"),
                 ("host", "dlrm-rm2", "train_batch"))
-# the dry-run's counts on a (2, 4) mesh with every redistribution its
-# own (``--strict``: none chosen by DTensor): collective bytes moved by
-# kind, the number of collectives, FLOPs and HBM bytes a device, fixed
-# whatever the torch version. ``tests/test_torch_dryrun.py`` holds them
-# on the host and against the JAX package's HLO; phase 3j on the card's
-# machine
+# the dry-run's counts on small meshes with every redistribution its own
+# (``--strict``: none chosen by DTensor): collective bytes moved by kind,
+# the number of collectives, FLOPs and HBM bytes a device, fixed whatever
+# the torch version, by (arch, shape, mesh shape): one cell at least of
+# each family of redistributions the dry-run makes itself (a sharded sort,
+# the in-batch diagonal, GIN's seed slice, decode over a position-sharded
+# cache, MoE decode and dispatch, GQA heads over model=16).
+# ``tests/test_torch_dryrun.py`` holds them on the host and against the JAX
+# package's HLO; phase 3j on the card's machine
 DRYRUN_PINNED = {
-    ("minitron-4b", "train_4k"): (
-        {"all-reduce": 1466552574016.0, "all-gather": 2378170368.0}, 511,
-        7062096237898814.0, 158729575568652.0),
-    ("gin-tu", "ogb_products"): (
-        {"all-reduce": 12539028480.0, "all-gather": 247447552.0}, 12,
+    ("minitron-4b", "train_4k", (2, 4)): (
+        {"all-reduce": 1466552574008.0, "all-gather": 2378170368.0}, 510,
+        7062096237898814.0, 158523215811852.0),
+    ("gin-tu", "ogb_products", (2, 4)): (
+        {"all-gather": 247447552.0, "all-reduce": 12539028480.0}, 12,
         742919342077.0, 517659039208.0),
-    ("dlrm-rm2", "train_batch"): (
-        {"all-reduce": 3770305056.0}, 19, 165605957492.0, 81653801832.0),
+    ("dlrm-rm2", "train_batch", (2, 4)): (
+        {"all-reduce": 3770305056.0}, 19,
+        165605957492.0, 81653801832.0),
+    ("dlrm-rm2", "retrieval_cand", (2, 4)): (
+        {"all-reduce": 6656000000.0, "all-gather": 4000000.0}, 2,
+        808846500000.0, 51567054844.0),
+    ("two-tower-retrieval", "train_batch", (2, 4)): (
+        {"all-reduce": 10916347984.0, "all-gather": 67108864.0}, 32,
+        3458804869155.0, 368450183640.0),
+    ("gin-tu", "minibatch_lg", (2, 4)): (
+        {"all-gather": 435159040.0,
+         "all-reduce": 870980152.0,
+         "collective-permute": 262144.0}, 51,
+        34838724097.0, 11336811708.0),
+    ("deepseek-7b", "decode_32k", (2, 4)): (
+        {"all-reduce": 128909312.0, "all-gather": 62914560.0}, 241,
+        467040873344.0, 2349749644432.0),
+    ("mixtral-8x7b", "decode_32k", (2, 4)): (
+        {"all-gather": 16069754880.0,
+         "all-reduce": 470943744.0,
+         "all-to-all": 67108864.0}, 739,
+        649145927072.0, 282719946240.0),
+    ("mixtral-8x7b", "prefill_32k", (2, 4)): (
+        {"all-gather": 26441940992.0, "all-reduce": 3445687846912.0}, 675,
+        6545726399595840.0, 334943720711300.0),
+    ("minitron-8b", "train_4k", (2, 16)): (
+        {"all-reduce": 1986177040440.0, "all-gather": 3170893824.0}, 766,
+        6694563527880766.0, 92265984331020.0),
 }
-# one process: the DRYRUN_PINNED cells on a (2, 4) mesh of meta devices,
-# strict; prints {"arch shape": [by_kind, n_collective_ops, FLOPs, HBM
-# bytes]} as JSON
+# the DRYRUN_PINNED cells of one process, strict: argv[1] is JSON [[arch,
+# shape, [mesh shape]], ...]; prints {"arch shape": [by_kind,
+# n_collective_ops, FLOPs, HBM bytes]} as JSON
 DRYRUN_PIN_CODE = r"""
 import json, sys
 from repro_torch.configs import get_spec
 from repro_torch.launch.dryrun import model_cell
 from repro_torch.launch.steps import build_step
 from repro_torch.sparse.dist import Mesh
-mesh = Mesh(("meta",) * 8, (2, 4), ("data", "model"))
 out = {}
-for cell in json.loads(sys.argv[1]):
-    r = model_cell(build_step(get_spec(cell[0]), cell[1]), mesh, "h100-sxm",
+for arch, shape, mshape in json.loads(sys.argv[1]):
+    mesh = Mesh(("meta",) * (mshape[0] * mshape[1]), tuple(mshape),
+                ("data", "model"))
+    r = model_cell(build_step(get_spec(arch), shape), mesh, "h100-sxm",
                    strict=True)
     c, rl = r["collectives"], r["roofline"]
-    out[" ".join(cell)] = [c["by_kind"], c["n_collective_ops"],
-                           rl["flops_per_device"], rl["hbm_bytes_per_device"]]
+    out[arch + " " + shape] = [c["by_kind"], c["n_collective_ops"],
+                               rl["flops_per_device"],
+                               rl["hbm_bytes_per_device"]]
 print(json.dumps(out))
 """
+# the pinned cells split over processes that run at once (the two slowest
+# alone)
+DRYRUN_PIN_GROUPS = (("mixtral-8x7b prefill_32k",), ("minitron-8b train_4k",))
 
 
 def dryrun_phase(measured_ms, device="cuda"):
     """Phase 3j: ``python -m repro_torch.launch.dryrun`` on this
     machine's host CPU, one subprocess a cell, all started together:
     ``DRYRUN_CELLS`` (one cell of each family on the pod1 mesh of 256
-    logical devices; gin-tu ogb_products and dlrm-rm2 train_batch on the
-    host mesh of this one card). Prints each cell's status and roofline
-    terms at the H100 SXM data-sheet rates (predictions, not
-    measurements); a cell that is not ``ok`` fails the phase. The host
+    logical devices, with mixtral-8x7b's MoE dispatch and minitron-8b's
+    GQA heads over model=16 among them; gin-tu ogb_products and dlrm-rm2
+    train_batch on the host mesh of this one card). Prints each cell's
+    status and roofline terms at the H100 SXM data-sheet rates
+    (predictions, not measurements); a cell that is not ``ok`` fails the phase. The host
     cells' roofline step time is printed beside the step this run
     measured (``measured_ms``, by arch: 3i (c), 3g). ``device`` is the
     host mesh's device type ("cpu" rehearses the phase without a card).
     Its JSONs go under a temporary directory that is removed however the
     phase ends. The model cells run ``--strict`` (no collective chosen by
-    DTensor), and one more subprocess holds ``DRYRUN_PINNED``'s cells on
-    a (2, 4) mesh to their pinned collectives: this machine's torch
+    DTensor), and three more subprocesses hold ``DRYRUN_PINNED``'s cells
+    on their small meshes to their pinned counts: this machine's torch
     places them as the host's does."""
     import os
     import shutil
@@ -2557,11 +2594,15 @@ def dryrun_phase(measured_ms, device="cuda"):
                  "--out", out, "--device", device, "--strict"], env=env,
                 cwd=tmp, text=True,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-        pin = subprocess.Popen(
-            [sys.executable, "-c", DRYRUN_PIN_CODE,
-             json.dumps([list(c) for c in DRYRUN_PINNED])], env=env, cwd=tmp,
-            text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-        procs.append(pin)
+        groups = [[c for c in DRYRUN_PINNED if f"{c[0]} {c[1]}" in g]
+                  for g in DRYRUN_PIN_GROUPS]
+        groups.insert(0, [c for c in DRYRUN_PINNED
+                          if not any(c in g for g in groups)])
+        pins = [subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_PIN_CODE, json.dumps(g)], env=env,
+            cwd=tmp, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE) for g in groups]
+        procs += pins
         for p, (mesh, arch, shape) in zip(procs, DRYRUN_CELLS):
             try:
                 _out, err = p.communicate(timeout=900)
@@ -2596,20 +2637,22 @@ def dryrun_phase(measured_ms, device="cuda"):
                          f"{got:.3f} ms measured here (median step, CUDA "
                          f"events): {got / pred:.2f}x")
             print(line, flush=True)
-        try:
-            out, err = pin.communicate(timeout=900)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            fail("3j: the pinned (2, 4) cells timed out")
-        check(pin.returncode == 0, f"3j: pinned cells: rc {pin.returncode}"
-                                   f"\n{err[-3000:]}")
-        got = json.loads(out.strip().splitlines()[-1])
-        for (arch, shape), pinned in DRYRUN_PINNED.items():
+        got = {}
+        for pin in pins:
+            try:
+                out, err = pin.communicate(timeout=900)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                fail("3j: the pinned cells timed out")
+            check(pin.returncode == 0, f"3j: pinned cells: rc "
+                                       f"{pin.returncode}\n{err[-3000:]}")
+            got.update(json.loads(out.strip().splitlines()[-1]))
+        for (arch, shape, mesh), pinned in DRYRUN_PINNED.items():
             g = tuple(got[f"{arch} {shape}"])
-            check(g == pinned, f"3j: {arch} {shape} on (2, 4): {g}, pinned "
+            check(g == pinned, f"3j: {arch} {shape} on {mesh}: {g}, pinned "
                                f"{pinned}")
-            print(f"[3j pinned {arch} {shape}] (2, 4) mesh, strict: "
+            print(f"[3j pinned {arch} {shape}] {mesh} mesh, strict: "
                   f"{g[0]} in {g[1]} collectives, {g[2]:.6e} FLOP and "
                   f"{g[3]:.6e} B HBM a device, as pinned", flush=True)
     finally:

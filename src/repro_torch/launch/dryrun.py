@@ -17,11 +17,13 @@ no HLO, so the port runs the step itself, allocating nothing:
   choices, which differ between torch versions: the models' hints
   (``shard_hint``, ``shard_like``), a partial sum reduced where a
   non-linear op consumes it (XLA's choice), views that keep the shards
-  of the dims they merge or split, and its own rules for lookups,
-  scatters, pads and a diagonal's backward. A collective DTensor would
-  still choose is listed in the cell's ``dtensor_choices``; ``strict``
-  makes it an error. The group lives inside ``run_cell`` and is
-  destroyed on the way out.
+  of the dims they merge or split, and its own rules for products,
+  lookups, scatters, sorts, slices, pads and diagonals. Where
+  grouped-query heads split the model axis's shards across two dims, the
+  axis is factored into two mesh dims (``model_axis_factors``). A
+  collective DTensor would still choose is listed in the cell's
+  ``dtensor_choices``; ``strict`` makes it an error. The group lives
+  inside ``run_cell`` and is destroyed on the way out.
 * **Ranking cells.** ``make_dryrun_rank_sweep`` (the reference's lives
   in ``sparse/dist.py``) runs the sweep's modes over a
   ``sparse.dist.Mesh`` of ``meta`` devices, one process over every
@@ -59,7 +61,7 @@ from torch import nn
 from torch.utils._pytree import tree_flatten, tree_map_only
 
 from ..configs import REGISTRY, get_spec
-from ..models.sharding import P, filter_spec, placements
+from ..models.sharding import P, axis_of, filter_spec, placements
 from ..sparse.dist import Mesh, all_gather, psum
 from ..tree import leaves, tree_map
 from . import hlo_analysis
@@ -152,8 +154,8 @@ class ShardedCost(StepCost):
       table's gradient, placed as the table was in the lookup where the
       indices are replicated, partial where they are sharded;
     * a scatter (``index_add``, ``index_copy``, ``index_put``,
-      ``scatter_add``) runs on the target's shards: its index is
-      replicated, its updates sharded as the target along the dims the op
+      ``scatter``, ``scatter_add``) runs on the target's shards: its index
+      is replicated, its updates sharded as the target along the dims the op
       does not index and replicated elsewhere (each shard applies the
       updates that land in it, as a KV-cache write into a
       position-sharded cache); a replicated target takes the shards of
@@ -163,7 +165,24 @@ class ShardedCost(StepCost):
       keeps the gradient's shards; leaky_relu and its backward run on the
       shards of operands placed alike;
     * a softmax along a sharded dim normalizes each slice, its max and
-      sum all-reduced (``_softmax``).
+      sum all-reduced (``_softmax``);
+    * ``mm`` and ``bmm`` as XLA places a dot (``_matmul``): a batch or
+      contraction sharded alike, a replicated operand sliced to the
+      other's shards, and where the two are sharded along different
+      roles on one mesh dim, the one sharded along the contraction (an
+      FSDP weight) or else the smaller (decode's queries against the
+      cache's positions) gathered;
+    * a sort gathers its dim (``_sort``); a diagonal of a row-sharded
+      square takes each device's own rows (``_diagonal``); a slice along
+      a sharded dim keeps each device's even share, a collective-permute
+      moving the shares that lie on another device (``_slice``, and its
+      backward); ``x[idx]`` is a lookup as ``embedding`` is (``_index``);
+      a lookup whose ids and rows share a mesh dim gathers the ids;
+    * operands of one shape sharded along different dims on a mesh dim
+      take the first's shards (a pointwise op: decode's residual add);
+    * the gradient of a redistribution that only sliced stays sharded,
+      and a lookup's backward with a gradient sharded along the looked-up
+      positions scatters into a partial gradient of the whole table.
 
     Any other collective is DTensor's choice: recorded in ``implicit``
     by op and kind, and refused under ``strict``."""
@@ -191,9 +210,25 @@ class ShardedCost(StepCost):
                if isinstance(a, _dtensor())]
         if any(p.is_partial() for a in dts for p in a.placements) and not (
                 func._overloadpacket in _LINEAR and
-                all(a.placements == dts[0].placements for a in dts)):
+                all(a.placements == dts[0].placements for a in dts) and
+                len(dts) == len([a for a in args[:2] if isinstance(
+                    a, (torch.Tensor, float, int))])):
             args, kwargs = tree_map_only(_dtensor(), self.reduce_partial,
                                          (args, kwargs))
+            with self:
+                return func(*args, **kwargs)
+        if len(dts) > 1 and torch.Tag.pointwise in func.tags and all(
+                a.shape == dts[0].shape for a in dts) and any(
+                len({p.dim for p in ps if p.is_shard()}) > 1
+                for ps in zip(*(a.placements for a in dts))):
+            # operands of one shape sharded along different dims on a mesh
+            # dim (decode's residual add of a feature-sharded product):
+            # each mesh dim takes the first operand's shards there
+            want = [next((p for p in ps if p.is_shard()), ps[0])
+                    for ps in zip(*(a.placements for a in dts))]
+            args, kwargs = tree_map_only(
+                _dtensor(), lambda a: self.redistribute(a, want),
+                (args, kwargs))
             with self:
                 return func(*args, **kwargs)
         self._op = func
@@ -236,28 +271,35 @@ class ShardedCost(StepCost):
         if not isinstance(x, _dtensor()):
             return x
         shape = list(x._local_tensor.shape)
-        b = _numel(shape) * x.element_size()
-        if any(p.is_partial() and not q.is_shard() and mesh.size(d) > 1
-               for d, (p, q) in enumerate(zip(x.placements, want))):
-            self.add_collective("all-reduce", b)
-        for d, (p, q) in enumerate(zip(x.placements, want)):
-            n = mesh.size(d)
-            if p == q or n == 1:
-                continue
-            b = _numel(shape) * x.element_size()
-            if p.is_partial():
-                if q.is_shard():
+        item = x.element_size()
+        # one all-reduce over every partial mesh dim, where any of them
+        # ends unsharded: a dim that ends sharded then takes its slice
+        reduced = any(p.is_partial() and not q.is_shard() and mesh.size(d)
+                      > 1 for d, (p, q) in enumerate(zip(x.placements,
+                                                         want)))
+        if reduced:
+            self.add_collective("all-reduce", _numel(shape) * item)
+        for dims in _axis_dims(mesh):   # one collective per axis and kind
+            b = _numel(shape) * item
+            kinds = set()
+            for d in dims:
+                p, q, n = x.placements[d], want[d], mesh.size(d)
+                if p == q or n == 1:
+                    continue
+                if p.is_partial():
+                    if q.is_shard():
+                        shape[q.dim] //= n
+                        if not reduced:
+                            kinds.add("reduce-scatter")
+                elif p.is_shard():
+                    shape[p.dim] *= n
+                    if q.is_shard():
+                        shape[q.dim] //= n
+                    kinds.add("all-to-all" if q.is_shard() else "all-gather")
+                elif q.is_shard():
                     shape[q.dim] //= n
-                    self.add_collective("reduce-scatter", b / n, b)
-            elif p.is_shard():
-                shape[p.dim] *= n
-                if q.is_shard():
-                    shape[q.dim] //= n
-                    self.add_collective("all-to-all", b)
-                else:
-                    self.add_collective("all-gather", b * n)
-            elif q.is_shard():
-                shape[q.dim] //= n
+            for kind in sorted(kinds):
+                self.add_collective(kind, _numel(shape) * item, b)
         return torch.empty(shape, dtype=x.dtype, device="meta")
 
     def redistribute(self, x, want):
@@ -298,8 +340,12 @@ class _Redistribute(torch.autograd.Function):
     def forward(ctx, x, want, cost):
         from torch.distributed.tensor import Replicate
         ctx.cost = cost
-        ctx.back = [Replicate() if p.is_partial() else p
-                    for p in x.placements]
+        # where the forward only took a slice (replicated to sharded), the
+        # gradient keeps its shards: a replicated value's gradient may lie
+        # sharded (XLA places a cotangent so), and gathering it is waste
+        ctx.back = [q if p.is_replicate() and q.is_shard() else
+                    Replicate() if p.is_partial() else p
+                    for p, q in zip(x.placements, want)]
         return _wrap(cost.localize(x, want, x.device_mesh), x.device_mesh,
                      want)
 
@@ -311,6 +357,22 @@ class _Redistribute(torch.autograd.Function):
 def _dtensor():
     from torch.distributed.tensor import DTensor
     return DTensor
+
+
+def _axis_dims(mesh):
+    """The mesh dims of each mesh axis (an axis the dry-run factored
+    spans consecutive dims: ``models.sharding.axis_of``)."""
+    groups = {}
+    for d, name in enumerate(mesh.mesh_dim_names):
+        groups.setdefault(axis_of(name), []).append(d)
+    return list(groups.values())
+
+
+def _axes_over(mesh, dims) -> int:
+    """How many mesh axes of more than one device the mesh dims ``dims``
+    span (an all-reduce over them is one collective a axis)."""
+    return len({axis_of(mesh.mesh_dim_names[d]) for d in dims
+                if mesh.size(d) > 1})
 
 
 def _numel(shape) -> int:
@@ -343,29 +405,40 @@ def _embedding(cost, func, args, kwargs):
     mesh = next(a for a in args[:2] if isinstance(a, _dtensor())).device_mesh
     wpl = _placements_of(weight, mesh.ndim)
     ipl = _placements_of(indices, mesh.ndim)
-    want_w, out_pl, reduce = [], [], 0
+    want_w, out_pl, reduce = [], [], []
+    i_want = [p if p.is_shard() else Replicate() for p in ipl]
     for d, (wp, ip) in enumerate(zip(wpl, ipl)):
-        if ip.is_shard():
+        if ip.is_shard() and wp.is_shard(0):
+            # rows and ids split over one mesh dim (MoE's combine): every
+            # device looks all the ids up in its own rows (the ids are
+            # gathered), the outputs all-reduced, each keeping its share
+            want_w.append(wp)
+            i_want[d] = Replicate()
+            out_pl.append(Replicate())
+            reduce.append(d)
+        elif ip.is_shard():
             want_w.append(Replicate())
             out_pl.append(ip)
         elif wp.is_shard(0):
             want_w.append(wp)
             out_pl.append(Replicate())
-            reduce += mesh.size(d) > 1
+            reduce.append(d)
         elif wp.is_shard(1):
             want_w.append(wp)
             out_pl.append(type(wp)(indices.dim()))
         else:
             want_w.append(Replicate())
             out_pl.append(Replicate())
-    i_want = [p if p.is_shard() else Replicate() for p in ipl]
     cost.lookups[id(indices)] = want_w  # read by the backward
     w, i = cost.localize(weight, want_w, mesh), \
         cost.localize(indices, i_want, mesh)
     out = cost.run(func, (w, i) + tuple(args[2:]), kwargs)
-    for _ in range(reduce):
+    for _ in range(_axes_over(mesh, reduce)):
         cost.add_collective("all-reduce", out.numel() * out.element_size())
-    return _wrap(out, mesh, out_pl)
+    out = _wrap(out, mesh, out_pl)
+    keep = [ip if ip.is_shard() else p for p, ip in zip(out_pl, ipl)]
+    return out if keep == out_pl else _wrap(
+        cost.localize(out, keep, mesh), mesh, keep)  # a slice: no collective
 
 
 def _embedding_backward(cost, func, args, kwargs):
@@ -376,9 +449,20 @@ def _embedding_backward(cost, func, args, kwargs):
     # the table's placements in the forward lookup (replicated if unseen)
     wpl = cost.lookups.get(id(indices), [Replicate()] * mesh.ndim)
     g_want, out_pl, rows = [], [], num_weights
-    for d, (ip, wp) in enumerate(zip(ipl, wpl)):
+    i_want = [p if p.is_shard() else Replicate() for p in ipl]
+    gpl = _placements_of(grad, mesh.ndim)
+    for d, (ip, wp, gp) in enumerate(zip(ipl, wpl, gpl)):
         if ip.is_shard():
             g_want.append(ip)
+            out_pl.append(Partial())
+        elif not wp.is_shard(1) and gp.is_shard() and \
+                gp.dim < indices.dim():
+            # the gradient arrives sharded along the looked-up positions
+            # (the MoE buffer's slots, sharded by the buffer's hint): each
+            # device adds its positions' rows into a partial gradient of
+            # the whole table, as XLA scatters a sharded cotangent
+            g_want.append(gp)
+            i_want[d] = gp
             out_pl.append(Partial())
         elif wp.is_shard(0):
             g_want.append(Replicate())
@@ -390,21 +474,104 @@ def _embedding_backward(cost, func, args, kwargs):
         else:
             g_want.append(Replicate())
             out_pl.append(Replicate())
-    i_want = [p if p.is_shard() else Replicate() for p in ipl]
     g = cost.localize(grad, g_want, mesh)
     i = cost.localize(indices, i_want, mesh)
     out = cost.run(func, (g, i, rows) + tuple(args[3:]), kwargs)
     return _wrap(out, mesh, out_pl)
 
 
+def _index(cost, func, args, kwargs):
+    """``x[idx]`` (one index tensor, on dim 0) placed as ``_embedding``
+    places a lookup: rows sharded on a mesh dim where the index is
+    replicated are looked up on each shard and the outputs all-reduced;
+    where the index is sharded too, the rows are gathered first; the
+    index's shards and x's other dims' shards carry over to the output.
+    DTensor's rule for other index lists."""
+    from torch.distributed.tensor import Replicate, Shard
+    x, idx = args[0], list(args[1])
+    dt = _dtensor()
+    if len(idx) != 1 or idx[0] is None:
+        return _to_dtensor(cost, func, args, kwargs)
+    i = idx[0]
+    mesh = next(a for a in (x, i) if isinstance(a, dt)).device_mesh
+    xpl, ipl = _placements_of(x, mesh.ndim), _placements_of(i, mesh.ndim)
+    if not isinstance(x, dt):
+        x = _wrap(x.to("meta"), mesh, xpl)
+    x = cost.reduce_partial(x)
+    if any(ip.is_partial() or ip.is_shard() and xp.is_shard() and xp.dim > 0
+           for xp, ip in zip(x.placements, ipl)):
+        return _to_dtensor(cost, func, args, kwargs)
+    want_x, out_pl, reduce = [], [], []
+    for d, (xp, ip) in enumerate(zip(x.placements, ipl)):
+        if ip.is_shard():
+            want_x.append(Replicate())
+            out_pl.append(ip)
+        elif xp.is_shard(0):
+            want_x.append(xp)
+            out_pl.append(Replicate())
+            reduce.append(d)
+        elif xp.is_shard():
+            want_x.append(xp)
+            out_pl.append(Shard(i.dim() - 1 + xp.dim))
+        else:
+            want_x.append(Replicate())
+            out_pl.append(Replicate())
+    xl = cost.localize(x, want_x, mesh)
+    il = cost.localize(i, [p if p.is_shard() else Replicate() for p in ipl],
+                       mesh) if isinstance(i, dt) else i.to("meta")
+    out = cost.run(func, (xl, [il]), kwargs)
+    for _ in range(_axes_over(mesh, reduce)):
+        cost.add_collective("all-reduce", out.numel() * out.element_size())
+    return _wrap(out, mesh, out_pl)
+
+
+def _gather(cost, func, args, kwargs):
+    """``torch.gather`` along ``dim`` on the shards: an operand sharded
+    along another dim gives the other (its replicated partner) the
+    matching slice; values sharded along ``dim`` with a replicated index
+    are looked up on each shard and all-reduced, as ``_embedding`` does.
+    DTensor's rule for anything else."""
+    from torch.distributed.tensor import Replicate
+    dt = _dtensor()
+    x, dim, idx = args[0], args[1], args[2]
+    mesh = next(a for a in (x, idx) if isinstance(a, dt)).device_mesh
+    if not isinstance(x, dt):
+        x = _wrap(x.to("meta"), mesh, [Replicate()] * mesh.ndim)
+    if not isinstance(idx, dt):
+        idx = _wrap(idx.to("meta"), mesh, [Replicate()] * mesh.ndim)
+    x = cost.reduce_partial(x)
+    dim %= x.dim()
+    want_x, want_i, reduce = [], [], []
+    for d, (xp, ip) in enumerate(zip(x.placements, idx.placements)):
+        if ip.is_partial() or ip.is_shard() and (
+                ip.dim == dim or xp.is_shard() and xp != ip):
+            return _to_dtensor(cost, func, (x,) + tuple(args[1:]), kwargs)
+        if xp.is_shard(dim):
+            want_x.append(xp)
+            want_i.append(Replicate())
+            reduce.append(d)
+        else:
+            p = xp if xp.is_shard() else ip
+            want_x.append(p)
+            want_i.append(p)
+    out = cost.run(func, (cost.localize(x, want_x, mesh), dim,
+                          cost.localize(idx, want_i, mesh)) + tuple(args[3:]),
+                   kwargs)
+    for _ in range(_axes_over(mesh, reduce)):
+        cost.add_collective("all-reduce", out.numel() * out.element_size())
+    return _wrap(out, mesh, [Replicate() if d in reduce else p
+                             for d, p in enumerate(want_i)])
+
+
 def _index_tensors(func, args):
     """(indexed dims of ``self`` or None for any, index tensors, the
     other tensors)."""
     name = func._overloadpacket.__name__
-    if name.startswith(("index_add", "index_copy", "scatter_add")):
+    if name.startswith(("index_add", "index_copy", "scatter")):
         dim = args[1] % args[0].dim()
-        if name.startswith("scatter_add"):   # index is per element of src
-            return {dim}, [], [args[2], args[3]]
+        if name.startswith("scatter"):   # index is per element of src
+            return {dim}, [], [t for t in args[2:4]
+                               if isinstance(t, torch.Tensor)]
         return {dim}, [args[2]], [args[3]]
     if name.startswith(("index_put", "_index_put_impl")):
         idx = list(args[1])
@@ -421,6 +588,10 @@ def _scatter(cost, func, args, kwargs):
                 if isinstance(a, dt)).device_mesh
     indexed, index, others = _index_tensors(func, args)
     self_ = args[0]
+    if not isinstance(self_, dt):   # a plain target (zeros a backward
+        # formula makes by a factory) is replicated
+        self_ = _wrap(self_.to("meta"), mesh, [Replicate()] * mesh.ndim)
+        args = (self_,) + tuple(args[1:])
     pl = _placements_of(self_, mesh.ndim)
     rep = [Replicate()] * mesh.ndim
     local = indexed is not None and not any(p.is_partial() for p in pl)
@@ -490,6 +661,180 @@ def _diagonal_backward(cost, func, args, kwargs):
     out = cost.run(func, (grad._local_tensor, sizes, offset, d1, d2)
                    + tuple(args[5:]), kwargs)
     return _wrap(out, mesh, pl)
+
+
+def _sort(cost, func, args, kwargs):
+    """A sort (``argsort``, the stable top-k) along a sharded dim: that
+    dim gathered, as XLA sorts, the other dims' shards kept; values and
+    indices placed alike."""
+    from torch.distributed.tensor import Replicate
+    x = cost.reduce_partial(args[0])
+    dim = kwargs.get("dim", args[1] if len(args) > 1 else -1) % x.dim()
+    mesh = x.device_mesh
+    want = [Replicate() if p.is_shard(dim) else p for p in x.placements]
+    out = cost.run(func, (cost.localize(x, want, mesh),) + tuple(args[1:]),
+                   kwargs)
+    return tuple(_wrap(o, mesh, want) for o in out)
+
+
+def _diagonal(cost, func, args, kwargs):
+    """A diagonal of a tensor sharded along one of its two dims (the
+    in-batch positives of row-sharded (B, B) log-probabilities): each
+    device takes the diagonal of its own rows (this rank's block starts
+    at the diagonal), sharded along the diagonal; the other dims keep
+    their shards. DTensor's rule where both dims are sharded."""
+    from torch.distributed.tensor import Shard
+    x = cost.reduce_partial(args[0])
+    offset = args[1] if len(args) > 1 else kwargs.get("offset", 0)
+    d1 = (args[2] if len(args) > 2 else kwargs.get("dim1", 0)) % x.dim()
+    d2 = (args[3] if len(args) > 3 else kwargs.get("dim2", 1)) % x.dim()
+    mesh = x.device_mesh
+    if offset or (any(p.is_shard(d1) for p in x.placements) and
+                  any(p.is_shard(d2) for p in x.placements)):
+        return _to_dtensor(cost, func, (x,) + tuple(args[1:]), kwargs)
+    others = [k for k in range(x.dim()) if k not in (d1, d2)]
+    pl = [Shard(len(others)) if p.is_shard(d1) or p.is_shard(d2) else
+          Shard(others.index(p.dim)) if p.is_shard() else p
+          for p in x.placements]
+    out = cost.run(func, (x._local_tensor,) + tuple(args[1:]), kwargs)
+    return _wrap(out, mesh, pl)
+
+
+def _slice_shares(x_pl, mesh, dim, size, start, length):
+    """(n devices along the mesh dims sharding ``dim``, whether some
+    device's even share of ``[start, start + length)`` lies outside its
+    own block of the ``size`` rows), or None where the shares are not
+    even."""
+    mdims = [d for d, p in enumerate(x_pl) if p.is_shard(dim)
+             and mesh.size(d) > 1]
+    n = _numel([mesh.size(d) for d in mdims])
+    if not mdims or size % n or length % n:
+        return None
+    c, co = size // n, length // n
+    moved = any(not (r * c <= start + r * co and
+                     start + (r + 1) * co <= (r + 1) * c) for r in range(n))
+    return n, moved
+
+
+def _slice(cost, func, args, kwargs):
+    """A slice along a sharded dim (GIN's seeds, ``h[:n_seeds]``): each
+    device keeps its even share of the range, sharded as the input; a
+    share that lies on another device's rows arrives by a
+    collective-permute of the output shard (XLA's), counted once a
+    device. A range that does not split evenly, or a step, gathers the
+    dim first. Slices along unsharded dims are DTensor's (no
+    collective)."""
+    from torch.distributed.tensor import Replicate
+    x = args[0]
+    dim = (args[1] if len(args) > 1 else kwargs.get("dim", 0)) % x.dim()
+    size = x.shape[dim]
+    start, end, step = (list(args[2:5]) + [None] * 3)[:3]
+    start = kwargs.get("start", start)
+    end = kwargs.get("end", end)
+    step = kwargs.get("step", step) or 1
+    start, end, _ = slice(start, end, step).indices(size)
+    length = max(0, -(-(end - start) // step))
+    mesh = x.device_mesh
+    if not any(p.is_shard(dim) and mesh.size(d) > 1
+               for d, p in enumerate(x.placements)):
+        return _to_dtensor(cost, func, args, kwargs)
+    shares = None if step != 1 else _slice_shares(
+        x.placements, mesh, dim, size, start, length)
+    if shares is None:
+        want = [Replicate() if p.is_shard(dim) else p for p in x.placements]
+        out = cost.run(func, (cost.localize(x, want, mesh), dim, start, end,
+                              step), {})
+        return _wrap(out, mesh, want)
+    n, moved = shares
+    out = cost.run(func, (x._local_tensor, dim, 0, length // n, 1), {})
+    if moved:
+        cost.add_collective("collective-permute",
+                            out.numel() * out.element_size())
+    return _wrap(out, mesh, list(x.placements))
+
+
+def _slice_backward(cost, func, args, kwargs):
+    """A slice's backward (``_slice``'s placements): each device puts its
+    share of the gradient into its own rows, the shares that belong to
+    another device's rows moved by a collective-permute; unsharded
+    along the sliced dim, or uneven, the gradient is gathered there."""
+    from torch.distributed.tensor import Replicate
+    grad, sizes, dim, start, end, step = args[:6]
+    dim %= grad.dim()
+    sizes = list(sizes)
+    mesh = grad.device_mesh
+    shares = None if step != 1 else _slice_shares(
+        grad.placements, mesh, dim, sizes[dim], start, grad.shape[dim])
+    if shares is None:
+        want = [Replicate() if p.is_shard(dim) else p
+                for p in grad.placements]
+        g = cost.localize(grad, want, mesh)
+    else:
+        want = list(grad.placements)
+        g = grad._local_tensor
+        if shares[1]:
+            cost.add_collective("collective-permute",
+                                g.numel() * g.element_size())
+        start, end = 0, g.shape[dim]
+    local = list(sizes)
+    for d, p in enumerate(want):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(d)
+    out = cost.run(func, (g, local, dim, start, end, step), {})
+    return _wrap(out, mesh, want)
+
+
+def _matmul(cost, func, args, kwargs):
+    """``mm`` and ``bmm`` on the shards, placed per mesh dim as XLA's
+    partitioner places a dot: operands sharded alike along the batch dim
+    give a batch-sharded product, along the contraction a partial sum;
+    one operand sharded along its free dim (or the batch, or the
+    contraction) and the other replicated, the replicated one takes the
+    matching local slice. Where the two are sharded along different
+    roles on one mesh dim, one is gathered there: the one sharded along
+    the contraction when the other is sharded along a free or batch dim
+    (a weight sharded FSDP-style over the tokens' axis), else the smaller
+    (decode's query heads against the cache's positions). Partial
+    operands are reduced first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dt = _dtensor()
+    mesh = next(x for x in args[:2] if isinstance(x, dt)).device_mesh
+    a, b = (cost.reduce_partial(x) if isinstance(x, dt) else
+            _wrap(x.to("meta"), mesh, [Replicate()] * mesh.ndim)
+            for x in args[:2])
+    nd = a.dim()
+    roles_a = {nd - 2: "m", nd - 1: "k"}
+    roles_b = {nd - 2: "k", nd - 1: "n"}
+    if nd == 3:
+        roles_a[0] = roles_b[0] = "b"
+    size_a = a._local_tensor.numel() * a.element_size()
+    size_b = b._local_tensor.numel() * b.element_size()
+    want_a, want_b, out_pl = [], [], []
+    for d, (pa, pb) in enumerate(zip(a.placements, b.placements)):
+        ra = roles_a[pa.dim] if pa.is_shard() and mesh.size(d) > 1 else None
+        rb = roles_b[pb.dim] if pb.is_shard() and mesh.size(d) > 1 else None
+        if ra and rb and ra != rb:
+            if "k" in (ra, rb):         # keep the free dim's shards
+                ra, rb = (None, rb) if ra == "k" else (ra, None)
+            elif size_a <= size_b:      # gather the smaller operand
+                ra = None
+            else:
+                rb = None
+        role = ra or rb
+        if role is None:
+            want_a.append(Replicate())
+            want_b.append(Replicate())
+            out_pl.append(Replicate())
+            continue
+        dim_a = {"b": 0, "m": nd - 2, "k": nd - 1}.get(role)
+        dim_b = {"b": 0, "k": nd - 2, "n": nd - 1}.get(role)
+        want_a.append(Shard(dim_a) if dim_a is not None else Replicate())
+        want_b.append(Shard(dim_b) if dim_b is not None else Replicate())
+        out_pl.append(Partial() if role == "k" else
+                      Shard({"b": 0, "m": nd - 2, "n": nd - 1}[role]))
+    out = cost.run(func, (cost.localize(a, want_a, mesh),
+                          cost.localize(b, want_b, mesh)), kwargs)
+    return _wrap(out, mesh, out_pl)
 
 
 def _to_dtensor(cost, func, args, kwargs):
@@ -652,14 +997,19 @@ def _rules():
     rules = {aten.embedding: _embedding,
              aten.embedding_dense_backward: _embedding_backward,
              aten.constant_pad_nd: _pad,
+             aten.diagonal: _diagonal,
              aten.diagonal_backward: _diagonal_backward,
+             aten.sort: _sort, aten.index: _index, aten.gather: _gather,
+             aten.slice: _slice, aten.slice_backward: _slice_backward,
+             aten.mm: _matmul, aten.bmm: _matmul,
              aten.view: _view, aten._unsafe_view: _view,
              aten.leaky_relu: _elementwise,
              aten.leaky_relu_backward: _elementwise,
              aten._softmax: _softmax, aten._softmax_backward_data: _softmax}
     for op in (aten.index_add, aten.index_add_, aten.index_copy,
-               aten.index_copy_, aten.scatter_add,
-               aten.scatter_add_, aten.index_put, aten.index_put_,
+               aten.index_copy_, aten.scatter, aten.scatter_,
+               aten.scatter_add, aten.scatter_add_, aten.index_put,
+               aten.index_put_,
                aten._index_put_impl_, aten.searchsorted, aten.bincount):
         rules[op] = _scatter
     return rules
@@ -668,23 +1018,51 @@ def _rules():
 _RULES = _rules()
 
 
+def model_axis_factors(cfg, mesh: Mesh):
+    """How the dry-run factors the "model" axis for ``cfg`` (None: not at
+    all). Grouped-query attention views the model-sharded heads as (KV
+    groups, queries a group); where the axis does not divide the groups
+    (8 of them over model=16), each device holds part of one group, which
+    one mesh dim cannot place. XLA shards both dims of the view over the
+    one axis; the dry-run does the same by splitting the axis into
+    consecutive dims (gcd(KV heads, model), the rest) that shard the
+    groups and the queries within one."""
+    import math
+    m = dict(zip(mesh.axes, mesh.shape)).get("model", 1)
+    h, hkv = getattr(cfg, "n_heads", 0), getattr(cfg, "n_kv_heads", 0)
+    if m == 1 or not hkv or getattr(cfg, "attn_type", "mla") == "mla" \
+            or h % m or hkv % m == 0:
+        return None
+    a = math.gcd(hkv, m)
+    return (a, m // a) if (h // hkv) % (m // a) == 0 else None
+
+
 @contextlib.contextmanager
-def fake_device_mesh(mesh: Mesh):
+def fake_device_mesh(mesh: Mesh, factors=None):
     """A ``DeviceMesh`` of ``mesh``'s shape and axis names on a ``fake``
     process group of ``mesh.size`` ranks (this process is rank 0),
     destroyed on exit, with DTensor's strict views relaxed
-    (``_relaxed_views``)."""
+    (``_relaxed_views``). ``factors`` (``model_axis_factors``) splits the
+    "model" axis into dims "model", "model.1"."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("a process group is already initialized")
+    shape, names = [], []
+    for axis, n in zip(mesh.axes, mesh.shape):
+        if axis == "model" and factors:
+            shape += list(factors)
+            names += ["model", "model.1"]
+        else:
+            shape.append(n)
+            names.append(axis)
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=mesh.size)
     try:
         with _relaxed_views():
-            yield init_device_mesh("cpu", mesh.shape,
-                                   mesh_dim_names=mesh.axes)
+            yield init_device_mesh("cpu", tuple(shape),
+                                   mesh_dim_names=tuple(names))
     finally:
         dist.destroy_process_group()
 
@@ -754,7 +1132,8 @@ def model_cell(step, mesh: Mesh, hw: str, strict: bool = False) -> dict:
     chose by itself (its choices differ between torch versions); under
     ``strict`` the first one raises."""
     from torch.distributed.tensor.experimental import implicit_replication
-    with fake_device_mesh(mesh) as dmesh:
+    factors = model_axis_factors(getattr(step.args[0], "cfg", None), mesh)
+    with fake_device_mesh(mesh, factors) as dmesh:
         args = tuple(_place_arg(a, s, dmesh, mesh)
                      for a, s in zip(step.args, step.in_specs))
         cost = ShardedCost(strict)

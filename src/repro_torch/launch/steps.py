@@ -32,7 +32,7 @@ from ..graph.sampler import khop_sizes
 from ..models import gnn as gnn_m
 from ..models import recsys as rs
 from ..models import transformer as tf_m
-from ..models.sharding import DP, P
+from ..models.sharding import DP, P, shard_hint
 from ..tree import tree_map
 from ..train.optimizer import AdamWConfig, init_opt_state, opt_state_specs
 from ..train.train_step import make_train_step
@@ -333,7 +333,10 @@ def recsys_retrieval(spec: ArchSpec, shape: dict) -> LoweredStep:
         flops = 2 * c * (sum((cfg.embed_dim,) + cfg.tower_mlp) ** 1)
     elif isinstance(cfg, rs.BSTConfig):
         def fn(params, hist, cands):
-            h = hist.expand((c,) + tuple(hist.shape[1:]))
+            # the broadcast history sharded as the candidates (XLA places
+            # it so), not replicated
+            h = shard_hint(hist.expand((c,) + tuple(hist.shape[1:])),
+                           DP, None)
             return rs.topk(logits(params, h, cands), 100)
         args = (params, _meta((1, cfg.seq_len), torch.int32),
                 _meta((c,), torch.int32))
@@ -341,8 +344,10 @@ def recsys_retrieval(spec: ArchSpec, shape: dict) -> LoweredStep:
         flops = _recsys_flops(spec, c) // 3
     else:
         def fn(params, dense, sparse_user, cands):
-            d = dense.expand(c, dense.shape[1])
-            su = sparse_user.expand(c, sparse_user.shape[1])
+            # the user's broadcast features sharded as the candidates
+            d = shard_hint(dense.expand(c, dense.shape[1]), DP, None)
+            su = shard_hint(sparse_user.expand(c, sparse_user.shape[1]),
+                            DP, None)
             ids = torch.cat([cands[:, None], su[:, 1:]], dim=1)
             return rs.topk(logits(params, d, ids), 100)
         args = (params, _meta((1, cfg.n_dense), torch.float32),

@@ -386,7 +386,9 @@ def item_embed(params, item_ids):
 def twotower_inbatch_loss(params, user_ids, item_ids, cfg: TwoTowerConfig):
     """In-batch sampled softmax (positives on the diagonal)."""
     u = user_embed(params, user_ids)
-    v = item_embed(params, item_ids)
+    # every device scores its users against the whole batch's items (XLA
+    # gathers the items for the product)
+    v = shard_hint(item_embed(params, item_ids), None, None)
     logits = (u @ v.T) / cfg.temperature                      # (B, B)
     logits = shard_hint(logits, DP, None)
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -414,9 +416,15 @@ def retrieval_scores(params, user_ids, cand_ids, prior=None,
 def topk(scores, k: int):
     """``lax.top_k``: the k largest along the last axis, ties to the
     lowest index (a stable descending sort; ``torch.topk`` does not order
-    ties)."""
+    ties). Where a gradient flows (the MoE router), the values are
+    gathered at the sorted indices, the same numbers, so their gradient
+    is ``gather``'s on every torch version: a sort's backward makes its
+    zeros one way on torch 2.11 and another on 2.13, which the dry-run
+    would count apart."""
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    idx = idx[..., :k]
+    return (scores.gather(-1, idx) if scores.requires_grad
+            else vals[..., :k]), idx
 
 
 def retrieval_topk(params, user_ids, cand_ids, k: int = 100, prior=None,

@@ -81,14 +81,21 @@ def tree_filter_specs(tree, mesh):
     return tree_map(lambda s: filter_spec(s, mesh), tree)
 
 
+def axis_of(mesh_dim_name: str) -> str:
+    """The mesh axis a ``DeviceMesh`` dim belongs to: the dry-run may
+    factor an axis into consecutive dims named ``axis``, ``axis.1``, ...
+    (outermost first), which together shard what the axis shards."""
+    return mesh_dim_name.partition(".")[0]
+
+
 def placements(spec, device_mesh):
     """The DTensor placements of a filtered spec on ``device_mesh``: per
-    mesh dim, ``Shard(i)`` for the tensor axis whose entry names it,
-    else ``Replicate()``. Axes in one entry shard that tensor axis in
-    mesh order (the outermost first, as in the reference)."""
+    mesh dim, ``Shard(i)`` for the tensor axis whose entry names its
+    axis, else ``Replicate()``. Axes in one entry shard that tensor axis
+    in mesh order (the outermost first, as in the reference)."""
     from torch.distributed.tensor import Replicate, Shard
     out = []
-    for name in device_mesh.mesh_dim_names:
+    for name in map(axis_of, device_mesh.mesh_dim_names):
         dim = next((i for i, a in enumerate(spec)
                     if a == name or (isinstance(a, tuple) and name in a)),
                    None)
@@ -109,7 +116,9 @@ def shard_hint(x, *spec):
     if not is_dtensor(x):
         return x
     mesh = x.device_mesh
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    sizes = {}
+    for name, n in zip(mesh.mesh_dim_names, mesh.shape):
+        sizes[axis_of(name)] = sizes.get(axis_of(name), 1) * n
     spec = filter_spec(spec, mesh)
 
     def size(a):

@@ -320,9 +320,25 @@ def test_collective_rate_by_mesh_size():
 
 
 # ------------------------------------------------ fake process group cells
-# (arch, shape) of the cells held to the reference on a (2, 4) mesh
-CELLS_24 = [("minitron-4b", "train_4k"), ("gin-tu", "ogb_products"),
-            ("dlrm-rm2", "train_batch")]
+# (arch, shape, mesh shape) of the cells held to the reference's compiled HLO
+# on 8 (or, for (2, 16), 32) forced host devices: one at least of each family
+# of redistributions the dry-run makes itself
+HELD = [("minitron-4b", "train_4k", (2, 4)),
+        ("gin-tu", "ogb_products", (2, 4)),
+        ("dlrm-rm2", "train_batch", (2, 4)),
+        ("dlrm-rm2", "retrieval_cand", (2, 4)),          # a sharded sort
+        ("two-tower-retrieval", "train_batch", (2, 4)),  # in-batch diagonal
+        ("gin-tu", "minibatch_lg", (2, 4)),              # the seeds' slice
+        ("deepseek-7b", "decode_32k", (2, 4)),   # a position-sharded cache
+        ("mixtral-8x7b", "decode_32k", (2, 4)),          # MoE decode
+        ("mixtral-8x7b", "prefill_32k", (2, 4)),         # MoE dispatch
+        ("minitron-8b", "train_4k", (2, 16))]            # GQA over model=16
+CELL_IDS = [f"{a} {s}" for a, s, _ in HELD]
+# the port's cells run in three processes at once (the slowest two alone)
+ALONE = {"mixtral-8x7b prefill_32k": "port_moe",
+         "minitron-8b train_4k": "port_gqa"}
+PORT_GROUPS = {g: [c for c, i in zip(HELD, CELL_IDS) if ALONE.get(i, "port")
+                   == g] for g in ("port", "port_moe", "port_gqa")}
 
 FAKE_GROUP = r"""
 import json, sys
@@ -331,10 +347,15 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.steps import build_step
 from repro_torch.sparse.dist import Mesh
 out = {"cells": {}}
-mesh = Mesh(("meta",) * 8, (2, 4), ("data", "model"))
-for arch, shape in json.loads(sys.argv[2]):
+for arch, shape, mshape in json.loads(sys.argv[2]):
+    mesh = Mesh(("meta",) * (mshape[0] * mshape[1]), tuple(mshape),
+                ("data", "model"))
     out["cells"][arch + " " + shape] = dryrun.model_cell(
         build_step(get_spec(arch), shape), mesh, "h100-sxm", strict=True)
+if sys.argv[3] != "extras":
+    print(json.dumps(out))
+    sys.exit()
+mesh = Mesh(("meta",) * 8, (2, 4), ("data", "model"))
 out["host"] = dryrun.run_cell("gin-tu", "full_graph_sm", "host", sys.argv[1],
                               device="cpu")
 # the dry-run's own rules on a (2, 4) mesh: a lookup in a row-sharded table
@@ -343,40 +364,102 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor.experimental import implicit_replication
 from repro_torch.models.sharding import P
+rules = {}
+def record(name, t, cost):
+    rules[name] = {"coll": cost.collectives()["output_bytes_by_kind"],
+                   "pl": str(tuple(t.placements)),
+                   "local": list(t.to_local().shape)}
+def place(shape, spec, dm, dtype=torch.float32):
+    return dryrun._place(torch.empty(shape, dtype=dtype, device="meta"),
+                         P(*spec), dm, mesh)
 with dryrun.fake_device_mesh(mesh) as dm:
-    table = dryrun._place(torch.empty(64, 16, device="meta"),
-                          P("model", None), dm, mesh)
-    ids = dryrun._place(torch.empty(32, dtype=torch.long, device="meta"),
-                        P("data"), dm, mesh)
-    cache = dryrun._place(torch.empty(4, 8, 2, device="meta"),
-                          P("data", "model", None), dm, mesh)
-    new = dryrun._place(torch.empty(4, 1, 2, device="meta"),
-                        P("data", None, None), dm, mesh)
+    table = place((64, 16), ("model", None), dm)
+    ids = place((32,), ("data",), dm, torch.long)
+    cache = place((4, 8, 2), ("data", "model", None), dm)
+    new = place((4, 1, 2), ("data", None, None), dm)
     cost = dryrun.ShardedCost()
     with implicit_replication(), cost:
         e = F.embedding(ids.long() % 8, table.detach())
-        lookup = cost.collectives()
+        record("lookup", e, cost)
         cache.index_copy_(1, torch.tensor([5]), new)
-    out["rules"] = {"lookup": lookup, "lookup_pl": str(e.placements),
-                    "lookup_local": list(e.to_local().shape),
-                    "cache": cost.collectives(),
-                    "cache_pl": str(cache.placements)}
-    # a product of operands sharded against each other: DTensor must
-    # choose a redistribution, which strict refuses and the default records
-    a = dryrun._place(torch.empty(16, 32, device="meta"), P("data", "model"),
-                      dm, mesh)
-    b = dryrun._place(torch.empty(32, 8, device="meta"), P(None, "data"),
-                      dm, mesh)
+        record("cache", cache, cost)
+    # a sort along a model-sharded dim (the retrieval top-k)
+    x = place((16, 32), ("data", "model"), dm)
+    with implicit_replication(), dryrun.ShardedCost(strict=True) as cost:
+        vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+        record("sort", idx, cost)
+    # GIN's seeds: the first 16 of 64 data-sharded rows, and the backward
+    h = place((64, 8), ("data", None), dm)
+    with implicit_replication(), dryrun.ShardedCost(strict=True) as cost:
+        record("slice", h[:16], cost)
+    g = place((16, 8), ("data", None), dm)
+    with implicit_replication(), dryrun.ShardedCost(strict=True) as cost:
+        record("slice_backward", torch.ops.aten.slice_backward(
+            g, [64, 8], 0, 0, 16, 1), cost)
+    # a scatter into a plain zeros target (as a backward formula makes
+    # one) by data-sharded indices and updates
+    idx = place((16, 2), ("data", None), dm, torch.long)
+    src = place((16, 2), ("data", None), dm)
+    with implicit_replication(), dryrun.ShardedCost(strict=True) as cost:
+        record("scatter", torch.ops.aten.scatter.src(
+            torch.zeros(16, 8), 1, idx, src), cost)
+    # lookups: along an unsharded dim with an index sharded alike, along
+    # a model-sharded dim with a replicated index, x[idx] of data-sharded
+    # rows; and the diagonal of a row-sharded square
+    with implicit_replication(), dryrun.ShardedCost(strict=True) as cost:
+        record("gather", place((16, 8), ("data", None), dm).gather(
+            1, place((16, 2), ("data", None), dm, torch.long)), cost)
+    with implicit_replication(), dryrun.ShardedCost(strict=True) as cost:
+        record("gather_masked", place((4, 32), (None, "model"), dm).gather(
+            1, place((4, 3), (None, None), dm, torch.long)), cost)
+    with implicit_replication(), dryrun.ShardedCost(strict=True) as cost:
+        record("index", place((32,), ("data",), dm, torch.long)[
+            place((32,), (None,), dm, torch.long)], cost)
+    with implicit_replication(), dryrun.ShardedCost(strict=True) as cost:
+        record("diagonal", place((16, 16), ("data", None), dm).diagonal(),
+               cost)
+    # decode: model-sharded query heads against a model-sharded cache's
+    # positions, then the contraction over the positions
+    q = place((4, 8, 16), ("data", "model", None), dm)
+    k = place((4, 32, 16), ("data", "model", None), dm)
+    with implicit_replication(), dryrun.ShardedCost(strict=True) as cost:
+        s = torch.einsum("bhd,bsd->bhs", q, k)
+        record("decode_scores", s, cost)
+        o = torch.einsum("bhs,bsd->bhd", s, k)
+        record("decode_out", o, cost)
+    # a product of operands sharded against each other along one mesh dim
+    # both by a free dim: a broadcast add DTensor must place itself, which
+    # strict refuses and the default records
+    a = place((16, 32), ("data", "model"), dm)
+    b = place((32,), ("data",), dm)
     try:
         with implicit_replication(), dryrun.ShardedCost(strict=True):
-            a @ b
+            a + b
         out["strict"] = "no error"
     except RuntimeError as err:
         out["strict"] = str(err)
     lax = dryrun.ShardedCost()
     with implicit_replication(), lax:
-        a @ b
+        a + b
     out["lax"] = {f"{op} {kind}": v for (op, kind), v in lax.implicit.items()}
+# grouped-query heads over model=16 factored (8, 2): 32 heads into 8 groups
+big = Mesh(("meta",) * 32, (2, 16), ("data", "model"))
+with dryrun.fake_device_mesh(big, (8, 2)) as dm:
+    q = dryrun._place(torch.empty(2, 4, 32, 8, device="meta"),
+                      P("data", None, "model", None), dm, big)
+    kv = dryrun._place(torch.empty(2, 6, 8, 8, device="meta"),
+                       P("data", None, None, None), dm, big)
+    with implicit_replication(), dryrun.ShardedCost(strict=True) as cost:
+        qg = q.reshape(2, 4, 8, 4, 8)
+        record("gqa_view", qg, cost)
+        sc = torch.einsum("bqhgd,bkhd->bqhgk", qg, kv)
+        record("gqa_scores", sc, cost)
+        record("gqa_merge", torch.einsum("bqhgk,bkhd->bqhgd", sc, kv)
+               .reshape(2, 4, 32, 8), cost)
+out["rules"] = rules
+out["factors"] = [dryrun.model_axis_factors(get_spec(a).config, m) for a, m
+                  in (("minitron-8b", big), ("minitron-8b", mesh),
+                      ("deepseek-7b", big), ("mixtral-8x7b", big))]
 import torch.distributed as dist
 out["group_left"] = dist.is_initialized()
 print(json.dumps(out))
@@ -385,8 +468,9 @@ print(json.dumps(out))
 
 @pytest.fixture(scope="module")
 def subprocs(tmp_path_factory):
-    """The file's three subprocesses, started together: the port's fake
-    group cells, the reference's model cells and ranking cells."""
+    """The file's subprocesses, started together: the port's fake group
+    cells (three processes), the reference's model cells on 8 and on 32
+    forced host devices, and its ranking cells."""
     d = tmp_path_factory.mktemp("dryrun_cells")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     ref_env = dict(env, JAX_PLATFORMS="cpu")
@@ -395,10 +479,15 @@ def subprocs(tmp_path_factory):
         return subprocess.Popen([sys.executable, "-c"] + argv, env=e,
                                 text=True, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE)
-    procs = {"port": start([FAKE_GROUP, str(d), json.dumps(CELLS_24)], env),
-             "ref_model": start([REF_MODEL, json.dumps(CELLS_24)], ref_env),
-             "ref_rank": start([REF_RANK, json.dumps(RANK_SHAPES),
-                                json.dumps(REF_CELLS)], ref_env)}
+    procs = {name: start([FAKE_GROUP, str(d), json.dumps(cells),
+                          "extras" if name == "port" else ""], env)
+             for name, cells in PORT_GROUPS.items()}
+    for n, mesh in ((8, (2, 4)), (32, (2, 16))):
+        cells = [c[:2] for c in HELD if c[2] == mesh]
+        procs[f"ref_model_{n}"] = start(
+            [REF_MODEL, str(n), json.dumps(mesh), json.dumps(cells)], ref_env)
+    procs["ref_rank"] = start([REF_RANK, json.dumps(RANK_SHAPES),
+                               json.dumps(REF_CELLS)], ref_env)
     yield procs
     for p in procs.values():
         if p.poll() is None:
@@ -414,35 +503,47 @@ def _last_json(proc):
 
 @pytest.fixture(scope="module")
 def fake_group_cells(subprocs):
-    return _last_json(subprocs["port"])
+    out = _last_json(subprocs["port"])
+    for name in ("port_moe", "port_gqa"):
+        out["cells"].update(_last_json(subprocs[name])["cells"])
+    return out
 
 
 REF_MODEL = r"""
 import os, json, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
+                           + sys.argv[1])
 import jax
 from repro.compat import make_mesh, set_mesh
 from repro.configs import get_spec
 from repro.launch import hlo_analysis
 from repro.launch.dryrun import _to_named
+from repro.launch.hlo_cost import HloModule
 from repro.launch.steps import build_step
-mesh = make_mesh((2, 4), ("data", "model"))
+mesh = make_mesh(tuple(json.loads(sys.argv[2])), ("data", "model"))
 out = {}
-for arch, shape in json.loads(sys.argv[1]):
+for arch, shape in json.loads(sys.argv[3]):
     step = build_step(get_spec(arch), shape)
     with set_mesh(mesh):
         comp = jax.jit(step.fn, in_shardings=_to_named(
             step.in_specs, mesh, step.args)).lower(*step.args).compile()
-        a = hlo_analysis.analyze(comp, step.meta["model_flops_per_step"], 8)
+        a = hlo_analysis.analyze(comp, step.meta["model_flops_per_step"],
+                                 int(sys.argv[1]))
+    # the HLO model's FLOPs without its kLoop fusions (one an output
+    # element): on the CPU backend these carry its bf16 <-> f32 converts
+    text = comp.as_text().replace("kind=kLoop", "kind=kNotCounted")
     out[arch + " " + shape] = {"roofline": a["roofline"],
-                               "by_kind": a["collectives"]["by_kind"]}
+                               "by_kind": a["collectives"]["by_kind"],
+                               "flops_no_loop": HloModule(text).flops()}
 print(json.dumps(out))
 """
 
 
 @pytest.fixture(scope="module")
 def ref_model_cells(subprocs):
-    return _last_json(subprocs["ref_model"])
+    out = _last_json(subprocs["ref_model_8"])
+    out.update(_last_json(subprocs["ref_model_32"]))
+    return out
 
 
 def test_mini_dryrun(fake_group_cells):
@@ -470,26 +571,68 @@ def test_mini_dryrun(fake_group_cells):
 # forward's and the transposed chunk scan's dynamic slices)
 MINI_GATHER = 3072 * 256000 * 2 + 2 * 32 * 3072 * 8 * 128 * 4
 MINI_REF_GATHER = 2 * 16 * 3072 * 16384 * 4
+# minitron-8b on (2, 16) likewise, at d 4096 (its 8 KV heads replicated
+# over model=16, so wk and wv are gathered whole: 2 x 32 layers x 4096 x 8
+# x 128 x 4 B)
+GQA_GATHER = 4096 * 256000 * 2 + 2 * 32 * 4096 * 8 * 128 * 4
+GQA_REF_GATHER = 2 * 16 * 4096 * 16384 * 4
 
 
-@pytest.mark.parametrize("cell", [" ".join(c) for c in CELLS_24])
+# per held cell: the bands of the port's FLOPs and HBM bytes over the
+# reference's ("no_loop": over its FLOPs without kLoop fusions, see
+# ``test_model_cell_matches_reference``); the default is FLOPs within 10 %
+# and bytes 0.5-2.5x
+BANDS = {"two-tower-retrieval train_batch": (1.55, 1.70, "all", 0.5, 2.5),
+         "deepseek-7b decode_32k": (0.9, 1.1, "no_loop", 0.02, 0.04),
+         "mixtral-8x7b decode_32k": (0.9, 1.1, "no_loop", 0.1, 0.15)}
+# per held cell: each collective kind's bytes moved, port over reference:
+# "equal", ("plus", n) (the port's exceeds by 0..n bytes), a (low, high)
+# band, a float (exactly that fraction) or "reference only"
+COLL = {
+    "gin-tu ogb_products": {"all-reduce": "equal", "all-gather": "equal"},
+    "dlrm-rm2 train_batch": {"all-reduce": ("plus", 16)},
+    "minitron-4b train_4k": {"all-reduce": (0.49, 0.52),
+                             "all-gather": MINI_GATHER / MINI_REF_GATHER,
+                             "collective-permute": "reference only"},
+    "dlrm-rm2 retrieval_cand": {"all-reduce": "equal", "all-gather": "equal"},
+    "two-tower-retrieval train_batch": {
+        "all-gather": "equal", "all-reduce": ("plus", 16),
+        "collective-permute": "reference only"},
+    "gin-tu minibatch_lg": {"all-gather": "equal", "all-reduce": ("plus", 16),
+                            "collective-permute": "equal"},
+    "deepseek-7b decode_32k": {"all-gather": 2 / 3,
+                               "all-reduce": (0.66, 0.68)},
+    "mixtral-8x7b decode_32k": {"all-gather": (0.3, 0.4),
+                                "all-reduce": (0.5, 0.65),
+                                "all-to-all": (1.8, 2.0),
+                                "collective-permute": "reference only"},
+    "mixtral-8x7b prefill_32k": {"all-gather": (0.4, 0.5),
+                                 "all-reduce": (0.5, 0.6),
+                                 "collective-permute": "reference only"},
+    "minitron-8b train_4k": {"all-gather": GQA_GATHER / GQA_REF_GATHER,
+                             "all-reduce": (0.49, 0.52),
+                             "collective-permute": "reference only"},
+}
+
+
+@pytest.mark.parametrize("cell", CELL_IDS)
 def test_model_cell_matches_reference(cell, fake_group_cells,
                                       ref_model_cells):
-    """Per device on a (2, 4) mesh, the port against the reference's
-    compiled HLO (8 forced host devices). FLOPs within 10 % (measured
-    1.0458 minitron-4b, 0.9487 gin-tu, 0.9899 dlrm-rm2: the port counts
-    its eager ops by ``flop_counter``'s formulas, the reference its HLO
-    ops). HBM bytes within 0.5-2.5x (measured 0.729, 1.089, 2.041: both
-    charge gathers and scatters alike, but XLA fuses elementwise chains
-    and AdamW's passes where the port reads and writes at every eager
-    op). Collective bytes moved, by kind:
+    """Per device on a (2, 4) mesh ((2, 16) for minitron-8b), the port
+    against the reference's compiled HLO (8 or 32 forced host devices),
+    run ``strict``: no redistribution chosen by DTensor. FLOPs within
+    10 % (the port counts its eager ops by ``flop_counter``'s formulas,
+    the reference its HLO ops), HBM bytes within 0.5-2.5x (both charge
+    gathers and scatters alike, but XLA fuses elementwise chains and
+    AdamW's passes where the port reads and writes at every eager op),
+    the model FLOPs equal; collective bytes moved by kind (``COLL``):
 
     * gin-tu ogb_products: equal (an all-gather of the edges onto the
       data axis, one all-reduce of the (N, 64) f32 aggregation a layer
       forward and one backward);
-    * dlrm-rm2 train_batch: all-reduce equal but for 8 B (the f32 scalars
-      the two reduce, the loss and the gradient norm's parts, differ by
-      one);
+    * dlrm-rm2 train_batch, two-tower train_batch, gin-tu minibatch_lg:
+      all-reduce equal but for 8 B (the f32 scalars the two reduce, the
+      loss and the gradient norm's parts, differ by one);
     * minitron-4b train_4k: all-reduce 0.49-0.52 (measured 0.5011): the
       reference's CPU compiler promotes the bf16 activation all-reduces
       to f32 (``to_apply=%add.clone_promoted``), the port reduces them in
@@ -497,30 +640,97 @@ def test_model_cell_matches_reference(cell, fake_group_cells,
       all-gather as ``MINI_GATHER`` against ``MINI_REF_GATHER``; the
       reference's collective-permute (113,246,208 B, its vocab padding
       moved between shards) has no counterpart: the port pads its last
-      chunk where it is."""
+      chunk where it is;
+    * minitron-8b train_4k, (2, 16), its "model" axis factored (8, 2) for
+      the 32 query heads grouped into 8 KV groups (no gather at the
+      view, as in the HLO): the same three statements, with
+      ``GQA_GATHER`` against ``GQA_REF_GATHER`` and the reference's
+      permute of 188,743,680 B (f32[4096,5760], its padded vocab);
+    * dlrm-rm2 retrieval_cand: equal (the scores gathered along the
+      candidates for the top-k sort, 4,000,000 B);
+    * two-tower train_batch: all-gather equal (the item vectors onto
+      every device, 67,108,864 B); the reference's collective-permute
+      (50,331,648 B) moves its items' rows between devices before its
+      model-axis gather (it takes a quarter of its data shard's rows and
+      gathers them over the model axis), where the port gathers over the
+      data axis at once. FLOPs 1.55-1.70 (measured 1.632): XLA splits the
+      two backward products of the (B/2, B) in-batch logits over the
+      model axis (``dot.7`` and ``dot.14`` on dynamic slices of the
+      logits' gradient, against the items' model shards from before its
+      gather) and all-reduces their (B/2, 256) outputs; the port computes
+      them whole on every device, 3/4 x 2.2e12 FLOPs more;
+    * gin-tu minibatch_lg: all-gather equal (no gather at the seeds'
+      slice); collective-permute equal (the second data shard's seed rows
+      moved from the first, forward and backward: 2 x 131,072 B);
+    * deepseek-7b decode_32k: all-gather 2/3: the query heads gathered
+      in f32 (1,048,576 B a layer) in both, the new K and V rows in bf16
+      in the port and in f32 in the reference's CPU compile
+      (``all-gather.10``/``.11`` f32[64,1,32,128]); all-reduce 0.66-0.68
+      (measured 0.672): the softmax statistics and the f32 values'
+      partial sums are equal, the out projection's and the MLP's bf16
+      all-reduces are f32 there (``clone_promoted``). FLOPs against the
+      reference's without its kLoop fusions (measured 1.0012): those are
+      its CPU compile's f32 conversions of the bf16 cache, 90 % of its
+      count. HBM bytes 0.02-0.04 (measured 0.0289): the reference's CPU
+      compile rewrites the whole stacked 30-layer cache at each layer's
+      one-position update, converting it between bf16 and f32
+      (``dynamic-update-slice_convert_fusion`` and
+      ``convert_dynamic-update-slice_fusion``, 77 % of its bytes), and
+      transposes each layer's cache in f32 (20 %); the port writes one
+      position and casts each layer's cache once;
+    * mixtral-8x7b decode_32k: FLOPs as deepseek-7b's (measured 1.042);
+      HBM bytes 0.10-0.15 (measured 0.124), the same cache rewrites.
+      All-gather 0.3-0.4 (measured 0.349): the reference gathers every
+      layer's three expert weights in f32 (FSDP: ``ecd,edf->ecf``
+      f32[8,4096,3584] twice, ``ecf,efd->ecd`` f32[8,3584,4096];
+      46.05e9 B); the port gathers w1 and w3 in bf16 (2 x 7.52e9 B) and,
+      for the second product, the smaller activations (88 MB), whose
+      feature-sharded product it moves onto the buffer's shards by an
+      all-to-all (50 MB): all-to-all 1.8-2.0 (measured 1.94), where the
+      reference's all-to-all (34.6 MB) moves the residual add's operand
+      only. All-reduce 0.5-0.65 (measured 0.583): bf16 in the port, f32
+      in the reference. Its collective-permute (1,048,576 B) moves the
+      router's FSDP shards (f32[1024,8]) before the router product; the
+      port gathers the router there;
+    * mixtral-8x7b prefill_32k (the MoE dispatch: a sorted, replicated
+      routing, the tokens gathered into the buffer by a masked lookup
+      and all-reduce, the combine's lookups likewise): all-gather 0.4-0.5
+      (measured 0.467): the FSDP expert and attention weights and the top-k
+      gates, f32 in the reference's CPU compile, bf16 in the port (the
+      gates f32 in both); all-reduce 0.5-0.6 (measured 0.543), bf16
+      against f32; the reference's collective-permutes move the router's
+      and the embedding table's FSDP shards (f32[1024,8], f32[8000,2048])
+      before their product and lookup, where the port gathers the router
+      with the weights and looks the table up in its shards."""
     mine, ref = fake_group_cells["cells"][cell], ref_model_cells[cell]
     rl, rrl = mine["roofline"], ref["roofline"]
     assert mine["dtensor_choices"] == {}
-    assert 0.9 < rl["flops_per_device"] / rrl["flops_per_device"] < 1.1
-    assert 0.5 < rl["hbm_bytes_per_device"] / rrl["hbm_bytes_per_device"] \
-        < 2.5
+    f_lo, f_hi, of, b_lo, b_hi = BANDS.get(cell,
+                                           (0.9, 1.1, "all", 0.5, 2.5))
+    ref_flops = ref["flops_no_loop"] if of == "no_loop" else \
+        rrl["flops_per_device"]
+    assert f_lo < rl["flops_per_device"] / ref_flops < f_hi
+    assert b_lo < rl["hbm_bytes_per_device"] / rrl["hbm_bytes_per_device"] \
+        < b_hi
     assert rl["model_flops"] == rrl["model_flops"]
     got, want = mine["collectives"]["by_kind"], ref["by_kind"]
-    if cell == "gin-tu ogb_products":
-        assert got == want
-    elif cell == "dlrm-rm2 train_batch":
-        assert set(got) == set(want) == {"all-reduce"}
-        assert 0 <= got["all-reduce"] - want["all-reduce"] <= 16
-    else:
-        assert set(want) == {"all-reduce", "all-gather",
-                             "collective-permute"}
-        assert set(got) == {"all-reduce", "all-gather"}
-        assert 0.49 < got["all-reduce"] / want["all-reduce"] < 0.52
-        assert got["all-gather"] == MINI_GATHER
-        assert want["all-gather"] == MINI_REF_GATHER
+    expect = COLL[cell]
+    assert set(want) | set(got) == set(expect)
+    for kind, e in expect.items():
+        if e == "reference only":
+            assert kind not in got and want[kind] > 0
+        elif e == "equal":
+            assert got[kind] == want[kind]
+        elif isinstance(e, tuple) and e[0] == "plus":
+            assert 0 <= got[kind] - want[kind] <= e[1]
+        elif isinstance(e, tuple):
+            assert e[0] < got[kind] / want[kind] < e[1], (kind, got, want)
+        else:
+            assert got[kind] == pytest.approx(want[kind] * e, abs=1)
+        assert kind in got or e == "reference only"
 
 
-@pytest.mark.parametrize("cell", CELLS_24)
+@pytest.mark.parametrize("cell", HELD, ids=CELL_IDS)
 def test_model_cell_pinned(cell, fake_group_cells):
     """Every collective of these cells is the dry-run's own (run
     ``strict``: DTensor chose none), so their counts are fixed whatever
@@ -528,7 +738,7 @@ def test_model_cell_pinned(cell, fake_group_cells):
     ``chip_smoke.DRYRUN_PINNED``, which phase 3j holds on the card's
     machine too. A change here means a placement or the cost model
     changed."""
-    r = fake_group_cells["cells"][" ".join(cell)]
+    r = fake_group_cells["cells"][f"{cell[0]} {cell[1]}"]
     coll, rl = r["collectives"], r["roofline"]
     assert (coll["by_kind"], coll["n_collective_ops"],
             rl["flops_per_device"], rl["hbm_bytes_per_device"]) == \
@@ -536,14 +746,16 @@ def test_model_cell_pinned(cell, fake_group_cells):
 
 
 def test_strict_refuses_dtensor_choice(fake_group_cells):
-    """(16, 32) sharded (data, model) times (32, 8) sharded (-, data): no
-    placement of the product avoids a redistribution, which DTensor
-    would choose itself. ``strict`` raises naming the op; the default
-    records it in ``implicit`` (a cell's ``dtensor_choices``)."""
+    """(16, 32) sharded (data, model) plus (32,) sharded on data: the
+    broadcast puts the second operand's shards along the first's model-
+    sharded columns, which no rule of the dry-run places, so DTensor
+    would choose a redistribution itself. ``strict`` raises naming the
+    op; the default records it in ``implicit`` (a cell's
+    ``dtensor_choices``)."""
     assert fake_group_cells["strict"].startswith("DTensor chose a ")
-    assert "aten.mm" in fake_group_cells["strict"]
+    assert "aten.add" in fake_group_cells["strict"]
     assert fake_group_cells["lax"] and all(
-        k.startswith("aten.mm") for k in fake_group_cells["lax"])
+        k.startswith("aten.add") for k in fake_group_cells["lax"])
 
 
 def _chip_smoke():
@@ -561,11 +773,107 @@ def test_dryrun_rules(fake_group_cells):
     one position of a position-sharded cache stays on the shards and
     moves nothing more."""
     r = fake_group_cells["rules"]
-    assert r["lookup_local"] == [16, 16]
-    assert r["lookup_pl"] == "(Shard(dim=0), Replicate())"
-    assert r["lookup"]["output_bytes_by_kind"] == {"all-reduce": 1024.0}
-    assert r["cache"] == r["lookup"]
-    assert r["cache_pl"] == "(Shard(dim=0), Shard(dim=1))"
+    assert r["lookup"]["local"] == [16, 16]
+    assert r["lookup"]["pl"] == "(Shard(dim=0), Replicate())"
+    assert r["lookup"]["coll"] == {"all-reduce": 1024.0}
+    assert r["cache"]["coll"] == r["lookup"]["coll"]
+    assert r["cache"]["pl"] == "(Shard(dim=0), Shard(dim=1))"
+
+
+def test_dryrun_rule_sort(fake_group_cells):
+    """A stable sort along the model-sharded dim of a (16, 32) f32 tensor
+    on (2, 4): the dim gathered (the (8, 32) shard, 1,024 B), the data
+    shards kept, values and indices placed alike."""
+    r = fake_group_cells["rules"]["sort"]
+    assert r["coll"] == {"all-gather": 1024.0}
+    assert r["pl"] == "(Shard(dim=0), Replicate())"
+    assert r["local"] == [8, 32]
+
+
+def test_dryrun_rule_slice(fake_group_cells):
+    """The first 16 of 64 data-sharded (64, 8) f32 rows: each data shard
+    keeps its even share (8 rows) with no gather; the second shard's
+    rows 8-15 lie on the first, so one collective-permute of the (8, 8)
+    output shard (256 B) a device, as XLA moves them; the slice's
+    backward puts the shares back the same way."""
+    r = fake_group_cells["rules"]
+    assert r["slice"]["coll"] == {"collective-permute": 256.0}
+    assert r["slice"]["pl"] == "(Shard(dim=0), Replicate())"
+    assert r["slice"]["local"] == [8, 8]
+    assert r["slice_backward"]["coll"] == {"collective-permute": 256.0}
+    assert r["slice_backward"]["pl"] == "(Shard(dim=0), Replicate())"
+    assert r["slice_backward"]["local"] == [32, 8]
+
+
+def test_dryrun_rule_scatter_plain_target(fake_group_cells):
+    """A scatter along dim 1 into a plain (16, 8) zeros target (as a
+    backward formula makes one: torch 2.11's sort backward did) by
+    data-sharded indices and updates: the target counts as replicated and
+    takes the updates' data shards, each device scattering into its
+    (8, 8) rows with no collective."""
+    assert fake_group_cells["rules"]["scatter"] == {
+        "coll": {}, "local": [8, 8], "pl": "(Shard(dim=0), Replicate())"}
+
+
+def test_dryrun_rule_lookups(fake_group_cells):
+    """``gather`` along an unsharded dim with its index sharded as the
+    values: each device on its rows, no collective; ``gather`` along the
+    model-sharded dim of (4, 32) f32 with a replicated (4, 3) index: each
+    device looks the index up in its own columns and the (4, 3) output
+    is all-reduced (48 B); ``x[idx]`` of data-sharded (32,) int64 rows by
+    a replicated index (MoE's ``flat_e[order]``): the same, 256 B; the
+    diagonal of a row-sharded (16, 16): each device's own rows, sharded
+    along the diagonal, no collective."""
+    r = fake_group_cells["rules"]
+    assert r["gather"] == {"coll": {}, "local": [8, 2],
+                           "pl": "(Shard(dim=0), Replicate())"}
+    assert r["gather_masked"] == {"coll": {"all-reduce": 48.0},
+                                  "local": [4, 3],
+                                  "pl": "(Replicate(), Replicate())"}
+    assert r["index"] == {"coll": {"all-reduce": 256.0}, "local": [32],
+                          "pl": "(Replicate(), Replicate())"}
+    assert r["diagonal"] == {"coll": {}, "local": [8],
+                             "pl": "(Shard(dim=0), Replicate())"}
+
+
+def test_dryrun_rule_decode_contraction(fake_group_cells):
+    """Decode over a position-sharded cache on (2, 4): the scores of
+    (4, 8, 16) queries with their heads on model against a (4, 32, 16)
+    cache with its positions on model gather the smaller operand, the
+    queries (a (2, 8, 16) f32 output, 1,024 B), and keep the positions'
+    shards; the values' contraction over the sharded positions is a
+    partial sum on model, all-reduced where the einsum's next op (a
+    permute) consumes it, as XLA reduces the product's output (the
+    (2, 8, 16) f32 shard, 1,024 B), with no gather of the cache."""
+    r = fake_group_cells["rules"]
+    assert r["decode_scores"]["coll"] == {"all-gather": 1024.0}
+    assert r["decode_scores"]["pl"] == "(Shard(dim=0), Shard(dim=2))"
+    assert r["decode_scores"]["local"] == [2, 8, 8]
+    assert r["decode_out"]["coll"] == {"all-gather": 1024.0,
+                                       "all-reduce": 1024.0}
+    assert r["decode_out"]["pl"] == "(Shard(dim=0), Replicate())"
+    assert r["decode_out"]["local"] == [2, 8, 16]
+
+
+def test_dryrun_rule_gqa_view(fake_group_cells):
+    """32 query heads on model=16, viewed as 8 KV groups of 4: with the
+    axis factored (8, 2), the view shards the groups on "model" and the
+    queries within a group on "model.1" (each device one group's 2
+    queries), the scores against replicated KV groups keep both, and the
+    merge back gives 2 heads a device: no collective at all.
+    ``model_axis_factors`` factors model=16 for minitron-8b's and
+    mixtral-8x7b's 8 KV heads, and neither model=4 nor deepseek-7b's 32
+    KV heads."""
+    r = fake_group_cells["rules"]
+    assert r["gqa_view"] == {"coll": {}, "local": [1, 4, 1, 2, 8],
+                             "pl": "(Shard(dim=0), Shard(dim=2), "
+                                   "Shard(dim=3))"}
+    assert r["gqa_scores"] == {"coll": {}, "local": [1, 4, 1, 2, 6],
+                               "pl": r["gqa_view"]["pl"]}
+    assert r["gqa_merge"] == {"coll": {}, "local": [1, 4, 2, 8],
+                              "pl": "(Shard(dim=0), Shard(dim=2), "
+                                    "Shard(dim=2))"}
+    assert fake_group_cells["factors"] == [[8, 2], None, None, [8, 2]]
 
 
 def test_host_mesh_cell(fake_group_cells):
