@@ -2496,7 +2496,9 @@ DRYRUN_CELLS = (("pod1", "minitron-4b", "train_4k"),
 # the torch version, by (arch, shape, mesh shape): one cell at least of
 # each family of redistributions the dry-run makes itself (a sharded sort,
 # the in-batch diagonal, GIN's seed slice, decode over a position-sharded
-# cache, MoE decode and dispatch, GQA heads over model=16).
+# cache, MoE decode and dispatch, GQA heads over model=16, MoE training
+# with the experts on data or on model, its buffer sharded unevenly on
+# (16, 2)).
 # ``tests/test_torch_dryrun.py`` holds them on the host and against the JAX
 # package's HLO; phase 3j on the card's machine
 DRYRUN_PINNED = {
@@ -2524,19 +2526,31 @@ DRYRUN_PINNED = {
         {"all-reduce": 128909312.0, "all-gather": 62914560.0}, 241,
         467040873344.0, 2349749644432.0),
     ("mixtral-8x7b", "decode_32k", (2, 4)): (
-        {"all-gather": 16069754880.0,
+        {"all-gather": 23497867264.0,
          "all-reduce": 470943744.0,
-         "all-to-all": 67108864.0}, 739,
-        649145927072.0, 282719946240.0),
+         "all-to-all": 16777216.0}, 707,
+        649145927072.0, 286434002432.0),
     ("mixtral-8x7b", "prefill_32k", (2, 4)): (
         {"all-gather": 26441940992.0, "all-reduce": 3445687846912.0}, 675,
         6545726399595840.0, 334943720711300.0),
     ("minitron-8b", "train_4k", (2, 16)): (
         {"all-reduce": 1986177040440.0, "all-gather": 3170893824.0}, 766,
         6694563527880766.0, 92265984331020.0),
+    ("mixtral-8x7b", "train_4k", (2, 4)): (
+        {"all-gather": 77446774784.0, "all-reduce": 11603287232600.0,
+         "reduce-scatter": 65536000.0}, 2262,
+        1.832630687744905e+16, 238538519689476.0),
+    ("deepseek-v2-236b", "train_4k", (2, 4)): (
+        {"all-gather": 1518843985920.0, "all-reduce": 33738947307648.0,
+         "reduce-scatter": 262144000.0}, 5250,
+        4.7940410324076e+16, 1463695042553704.0),
+    ("mixtral-8x7b", "train_4k", (16, 2)): (
+        {"all-gather": 146599313408.0, "all-reduce": 8034387513432.0,
+         "reduce-scatter": 131072000.0}, 2262,
+        4440809020007332.0, 67211202342532.0),
 }
 # the DRYRUN_PINNED cells of one process, strict: argv[1] is JSON [[arch,
-# shape, [mesh shape]], ...]; prints {"arch shape": [by_kind,
+# shape, [mesh shape], name], ...]; prints {name: [by_kind,
 # n_collective_ops, FLOPs, HBM bytes]} as JSON
 DRYRUN_PIN_CODE = r"""
 import json, sys
@@ -2545,20 +2559,30 @@ from repro_torch.launch.dryrun import model_cell
 from repro_torch.launch.steps import build_step
 from repro_torch.sparse.dist import Mesh
 out = {}
-for arch, shape, mshape in json.loads(sys.argv[1]):
+for arch, shape, mshape, name in json.loads(sys.argv[1]):
     mesh = Mesh(("meta",) * (mshape[0] * mshape[1]), tuple(mshape),
                 ("data", "model"))
     r = model_cell(build_step(get_spec(arch), shape), mesh, "h100-sxm",
                    strict=True)
     c, rl = r["collectives"], r["roofline"]
-    out[arch + " " + shape] = [c["by_kind"], c["n_collective_ops"],
-                               rl["flops_per_device"],
-                               rl["hbm_bytes_per_device"]]
+    out[name] = [c["by_kind"], c["n_collective_ops"],
+                 rl["flops_per_device"], rl["hbm_bytes_per_device"]]
 print(json.dumps(out))
 """
-# the pinned cells split over processes that run at once (the two slowest
-# alone)
-DRYRUN_PIN_GROUPS = (("mixtral-8x7b prefill_32k",), ("minitron-8b train_4k",))
+
+
+def pin_name(arch, shape, mesh):
+    """A pinned cell's name: "arch shape", and its mesh where the (2, 4) or
+    (2, 16) mesh is not the one (``tests/test_torch_dryrun.py``'s)."""
+    return f"{arch} {shape}" + ("" if mesh in ((2, 4), (2, 16)) else
+                                f" {mesh[0]}x{mesh[1]}")
+
+
+# the pinned cells split over processes that run at once (the slowest
+# alone, the two MoE training cells together)
+DRYRUN_PIN_GROUPS = (("mixtral-8x7b prefill_32k",), ("minitron-8b train_4k",),
+                     ("deepseek-v2-236b train_4k",),
+                     ("mixtral-8x7b train_4k", "mixtral-8x7b train_4k 16x2"))
 
 
 def dryrun_phase(measured_ms, device="cuda"):
@@ -2575,7 +2599,7 @@ def dryrun_phase(measured_ms, device="cuda"):
     host mesh's device type ("cpu" rehearses the phase without a card).
     Its JSONs go under a temporary directory that is removed however the
     phase ends. The model cells run ``--strict`` (no collective chosen by
-    DTensor), and three more subprocesses hold ``DRYRUN_PINNED``'s cells
+    DTensor), and five more subprocesses hold ``DRYRUN_PINNED``'s cells
     on their small meshes to their pinned counts: this machine's torch
     places them as the host's does."""
     import os
@@ -2594,10 +2618,11 @@ def dryrun_phase(measured_ms, device="cuda"):
                  "--out", out, "--device", device, "--strict"], env=env,
                 cwd=tmp, text=True,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-        groups = [[c for c in DRYRUN_PINNED if f"{c[0]} {c[1]}" in g]
-                  for g in DRYRUN_PIN_GROUPS]
-        groups.insert(0, [c for c in DRYRUN_PINNED
-                          if not any(c in g for g in groups)])
+        groups = [[list(c) + [pin_name(*c)] for c in DRYRUN_PINNED
+                   if pin_name(*c) in g] for g in DRYRUN_PIN_GROUPS]
+        groups.insert(0, [list(c) + [pin_name(*c)] for c in DRYRUN_PINNED
+                          if not any(pin_name(*c) in g
+                                     for g in DRYRUN_PIN_GROUPS)])
         pins = [subprocess.Popen(
             [sys.executable, "-c", DRYRUN_PIN_CODE, json.dumps(g)], env=env,
             cwd=tmp, text=True, stdout=subprocess.PIPE,
@@ -2627,7 +2652,10 @@ def dryrun_phase(measured_ms, device="cuda"):
                     f"{rl['flops_per_device']:.4e} FLOP, "
                     f"{rl['hbm_bytes_per_device']:.4e} B HBM, "
                     f"{rl['collective_bytes_per_device']:.4e} B moved in "
-                    f"{coll['n_collective_ops']} collectives; useful FLOP "
+                    f"{coll['n_collective_ops']} collectives ("
+                    + ", ".join(f"{k} {v:.4e}" for k, v in
+                                sorted(coll['by_kind'].items()))
+                    + f"); useful FLOP "
                     f"ratio {rl['useful_flops_ratio']:.4f}, roofline "
                     f"fraction {rl['roofline_fraction']:.4f}")
             if mesh == "host":
@@ -2649,7 +2677,7 @@ def dryrun_phase(measured_ms, device="cuda"):
                                        f"{pin.returncode}\n{err[-3000:]}")
             got.update(json.loads(out.strip().splitlines()[-1]))
         for (arch, shape, mesh), pinned in DRYRUN_PINNED.items():
-            g = tuple(got[f"{arch} {shape}"])
+            g = tuple(got[pin_name(arch, shape, mesh)])
             check(g == pinned, f"3j: {arch} {shape} on {mesh}: {g}, pinned "
                                f"{pinned}")
             print(f"[3j pinned {arch} {shape}] {mesh} mesh, strict: "

@@ -15,10 +15,12 @@ no HLO, so the port runs the step itself, allocating nothing:
   ``ShardedCost`` counts rank 0's local ops and makes every
   redistribution itself, so the counts do not follow DTensor's own
   choices, which differ between torch versions: the models' hints
-  (``shard_hint``, ``shard_like``), a partial sum reduced where a
-  non-linear op consumes it (XLA's choice), views that keep the shards
-  of the dims they merge or split, and its own rules for products,
-  lookups, scatters, sorts, slices, pads and diagonals. Where
+  (``shard_hint``, ``shard_like``; a dim the hint's axis does not divide
+  sharded as XLA pads it, a hint on a product's output carried back to
+  the product), a partial sum reduced where a non-linear op consumes it
+  (XLA's choice), views that keep the shards of the dims they merge or
+  split, and its own rules for products, lookups, scatters, sorts,
+  slices, pads and diagonals. Where
   grouped-query heads split the model axis's shards across two dims, the
   axis is factored into two mesh dims (``model_axis_factors``). A
   collective DTensor would still choose is listed in the cell's
@@ -61,7 +63,7 @@ from torch import nn
 from torch.utils._pytree import tree_flatten, tree_map_only
 
 from ..configs import REGISTRY, get_spec
-from ..models.sharding import P, axis_of, filter_spec, placements
+from ..models.sharding import DP, P, axis_of, filter_spec, placements
 from ..sparse.dist import Mesh, all_gather, psum
 from ..tree import leaves, tree_map
 from . import hlo_analysis
@@ -140,7 +142,12 @@ class ShardedCost(StepCost):
 
     * ``redistribute``: the models' ``shard_hint`` and ``shard_like``
       (through ``models.sharding.REDISTRIBUTE`` while the mode is
-      entered), counted by ``localize``;
+      entered), counted by ``localize``; a dim that a hint's axis does
+      not divide is sharded as XLA pads it (ceil(n / k) rows a device,
+      a gather k x ceil(n / k), a partial sum all-reduced whole), and a
+      hint on a product's output is carried back to the product
+      (``_carry``); where DTensor would still redistribute an uneven
+      shard, its uneven dims are gathered first;
     * a partial operand of any op but a linear one over operands placed
       alike (``_LINEAR``) is all-reduced first;
     * a view keeps the shards of the dims it merges or splits
@@ -152,7 +159,9 @@ class ShardedCost(StepCost):
       are sharded, the table is gathered first;
     * its backward: each device scatters its output gradient into the
       table's gradient, placed as the table was in the lookup where the
-      indices are replicated, partial where they are sharded;
+      table's rows are sharded (a gradient sharded along the positions
+      replicated first by an all-reduce, as XLA transposes a masked
+      gather), partial where the indices are sharded;
     * a scatter (``index_add``, ``index_copy``, ``index_put``,
       ``scatter``, ``scatter_add``) runs on the target's shards: its index
       is replicated, its updates sharded as the target along the dims the op
@@ -168,7 +177,9 @@ class ShardedCost(StepCost):
       sum all-reduced (``_softmax``);
     * ``mm`` and ``bmm`` as XLA places a dot (``_matmul``): a batch or
       contraction sharded alike, a replicated operand sliced to the
-      other's shards, and where the two are sharded along different
+      other's shards (but an FSDP weight, sharded along the contraction
+      over a data axis, gathered where its partial product's all-reduce
+      would move more), and where the two are sharded along different
       roles on one mesh dim, the one sharded along the contraction (an
       FSDP weight) or else the smaller (decode's queries against the
       cache's positions) gathered;
@@ -182,7 +193,8 @@ class ShardedCost(StepCost):
       take the first's shards (a pointwise op: decode's residual add);
     * the gradient of a redistribution that only sliced stays sharded,
       and a lookup's backward with a gradient sharded along the looked-up
-      positions scatters into a partial gradient of the whole table.
+      positions of a replicated table scatters into a partial gradient
+      of the whole table.
 
     Any other collective is DTensor's choice: recorded in ``implicit``
     by op and kind, and refused under ``strict``."""
@@ -195,7 +207,12 @@ class ShardedCost(StepCost):
         self.implicit = {}
         self._op = None
         self._declined = None
+        self._probe = False    # DTensor's choices raise _Probe
         self.merges = {}   # a view's merged dims, for the split undoing it
+        # a product's local output's storage (its views share it) -> (it,
+        # {mesh dim: the other placement it could have taken there}), for
+        # a hint carried back to the product (``_carry``)
+        self.products = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -217,22 +234,62 @@ class ShardedCost(StepCost):
                                          (args, kwargs))
             with self:
                 return func(*args, **kwargs)
-        if len(dts) > 1 and torch.Tag.pointwise in func.tags and all(
+        uneven = not self._probe and _uneven(dts)
+        tensors = [t for t in tree_flatten((args, kwargs))[0]
+                   if isinstance(t, torch.Tensor)]
+        # an uneven shard's operands, all of its shape (a plain tensor
+        # counts as replicated), placed apart on some mesh dim
+        plain = uneven and all(t.shape == dts[0].shape for t in tensors) \
+            and len(tensors) > 1
+        if torch.Tag.pointwise in func.tags and all(
                 a.shape == dts[0].shape for a in dts) and any(
-                len({p.dim for p in ps if p.is_shard()}) > 1
+                len({p.dim for p in ps if p.is_shard()}) > 1 or
+                plain and (len(set(ps)) > 1 or len(dts) < len(tensors))
                 for ps in zip(*(a.placements for a in dts))):
             # operands of one shape sharded along different dims on a mesh
-            # dim (decode's residual add of a feature-sharded product):
-            # each mesh dim takes the first operand's shards there
+            # dim (decode's residual add of a feature-sharded product), or
+            # beside an uneven shard (decode's one token over data=16):
+            # each mesh dim takes the first operand's shards there, the
+            # others sliced to them
+            from torch.distributed.tensor import Replicate
+            mesh = dts[0].device_mesh
             want = [next((p for p in ps if p.is_shard()), ps[0])
                     for ps in zip(*(a.placements for a in dts))]
-            args, kwargs = tree_map_only(
-                _dtensor(), lambda a: self.redistribute(a, want),
-                (args, kwargs))
+
+            def place(a):
+                if not isinstance(a, _dtensor()):
+                    if not plain:
+                        return a
+                    a = _wrap(a.to("meta"), mesh, [Replicate()] * mesh.ndim)
+                return self.redistribute(a, want)
+            args, kwargs = tree_map_only(torch.Tensor, place, (args, kwargs))
             with self:
                 return func(*args, **kwargs)
+        if uneven:
+            # where DTensor would redistribute an uneven shard itself (a
+            # mean over decode's one token padded over data=16), the
+            # uneven dims are gathered first, as XLA gathers a padded dim
+            # it cannot reduce in place
+            self._probe = True
+            try:
+                return _to_dtensor(self, func, args, kwargs)
+            except _Probe:
+                pass
+            finally:
+                self._probe = False
+            args, kwargs = tree_map_only(_dtensor(), self.gather_uneven,
+                                         (args, kwargs))
+            return _to_dtensor(self, func, args, kwargs)
         self._op = func
         return super().__torch_dispatch__(func, types, args, kwargs)
+
+    def gather_uneven(self, x):
+        """``x`` with the mesh dims that shard a dim unevenly gathered."""
+        from torch.distributed.tensor import Replicate
+        want = [Replicate() if _uneven_at(x, p) else p
+                for p in x.placements]
+        return x if want == list(x.placements) else \
+            self.redistribute(x, want)
 
     def reduce_partial(self, x):
         """``x`` with its partial mesh dims all-reduced, as XLA reduces a
@@ -243,6 +300,8 @@ class ShardedCost(StepCost):
 
     def _count(self, func, args, kwargs, out):
         if func.namespace in _C10D and _COLLECTIVES.get(func._opname):
+            if self._probe:
+                raise _Probe
             kind = _COLLECTIVES[func._opname]
             key = (str(self._op), kind)
             b = float(sum(t.numel() * t.element_size()
@@ -265,63 +324,128 @@ class ShardedCost(StepCost):
         """``x``'s local tensor at placements ``want`` (``meta``),
         counting the collectives of the redistribution: partial to
         replicated an all-reduce (one over every such mesh dim), partial
-        to sharded a reduce-scatter, sharded to replicated an all-gather,
+        to sharded a reduce-scatter (an all-reduce where the dim is
+        sharded unevenly), sharded to replicated an all-gather,
         sharded along another dim an all-to-all; replicated to sharded
-        is a local slice."""
+        is a local slice. A dim that its mesh dims do not divide is
+        sharded as XLA pads it: each shard ceil(n / k) (rank 0's, the one
+        counted), a gather's output k x ceil(n / k), the padding sliced
+        off after."""
         if not isinstance(x, _dtensor()):
             return x
         shape = list(x._local_tensor.shape)
+        cur = list(x.placements)
         item = x.element_size()
         # one all-reduce over every partial mesh dim, where any of them
-        # ends unsharded: a dim that ends sharded then takes its slice
-        reduced = any(p.is_partial() and not q.is_shard() and mesh.size(d)
-                      > 1 for d, (p, q) in enumerate(zip(x.placements,
-                                                         want)))
+        # ends unsharded or sharded unevenly (XLA all-reduces the whole,
+        # then pads and slices): a dim that ends sharded takes its slice
+        reduced = any(p.is_partial() and mesh.size(d) > 1 and (
+            not q.is_shard() or shape[q.dim] % mesh.size(d))
+            for d, (p, q) in enumerate(zip(x.placements, want)))
         if reduced:
             self.add_collective("all-reduce", _numel(shape) * item)
         for dims in _axis_dims(mesh):   # one collective per axis and kind
-            b = _numel(shape) * item
+            before = list(shape)
             kinds = set()
             for d in dims:
-                p, q, n = x.placements[d], want[d], mesh.size(d)
+                p, q, n = cur[d], want[d], mesh.size(d)
+                cur[d] = q
                 if p == q or n == 1:
                     continue
                 if p.is_partial():
                     if q.is_shard():
-                        shape[q.dim] //= n
+                        shape[q.dim] = -(-shape[q.dim] // n)
                         if not reduced:
                             kinds.add("reduce-scatter")
                 elif p.is_shard():
                     shape[p.dim] *= n
                     if q.is_shard():
-                        shape[q.dim] //= n
+                        shape[q.dim] = -(-shape[q.dim] // n)
                     kinds.add("all-to-all" if q.is_shard() else "all-gather")
                 elif q.is_shard():
-                    shape[q.dim] //= n
+                    shape[q.dim] = -(-shape[q.dim] // n)
             for kind in sorted(kinds):
-                self.add_collective(kind, _numel(shape) * item, b)
-        return torch.empty(shape, dtype=x.dtype, device="meta")
+                self.add_collective(kind, _numel(shape) * item,
+                                    _numel(before) * item)
+            shape = _local_shape(x.shape, cur, mesh)
+        out = torch.empty(shape, dtype=x.dtype, device="meta")
+        key = _storage(x._local_tensor)
+        if key in self.products and all(
+                p == q or p.is_partial() and q.is_replicate()
+                for p, q in zip(x.placements, want)):
+            # a product's partial sum reduced (before a permute) is still
+            # its output for ``_carry``
+            self.products[_storage(out)] = self.products.pop(key)
+        return out
 
-    def redistribute(self, x, want):
+    def redistribute(self, x, want, hint=False):
         """``x`` at placements ``want`` (``shard_hint``, ``shard_like``
         and the partial sums the dry-run reduces), counted by
-        ``localize``; differentiable, as ``DTensor.redistribute`` is."""
+        ``localize``; differentiable, as ``DTensor.redistribute`` is. A
+        ``hint`` is first carried back to the product that made ``x``
+        (``_carry``)."""
         want = list(want)
         if torch.is_grad_enabled() and x.requires_grad:
-            return _Redistribute.apply(x, want, self)
+            return _Redistribute.apply(x, want, self, hint)
+        if hint:
+            x = self._carry(x, want)
         return _wrap(self.localize(x, want, x.device_mesh), x.device_mesh,
-                     want)
+                     want, x.shape)
+
+    def _carry(self, x, want):
+        """A hint on a product's output carried back to the product, as
+        XLA's propagation gives a dot its constraint's placement and
+        partitions the dot to produce it. On a mesh dim where the output's
+        shards came from one operand's free dim only: a hint that gathers
+        it gathers that operand instead and computes the product whole
+        along the dim, where that moves fewer bytes (MoE's second expert
+        product in training: w2 gathered, FSDP, not the (E, C, d)
+        output); a hint that wants the other operand's free dim sharded
+        there, where the product gathered that other operand (the smaller
+        of two sharded apart), gathers the first one instead (MoE decode:
+        w2 gathered, not the tokens' activations, and no all-to-all).
+        Returns ``x`` at its new placements."""
+        from torch.distributed.tensor import Replicate
+        loc = x._local_tensor
+        rec = self.products.pop(_storage(loc), None)
+        if rec is None:
+            return x
+        mesh, pl = x.device_mesh, list(x.placements)
+        out_b = loc.numel() * loc.element_size()
+        for d, (kind, counted, gather, flops, hbm) in rec[1].items():
+            n, p, q = mesh.size(d), pl[d], want[d]
+            if not p.is_shard() or (q.is_shard() if kind == "gather" else
+                                    not q.is_shard() or q.dim == p.dim):
+                continue
+            if kind == "gather" and gather >= out_b:
+                continue
+            self.add_collective("all-gather", gather * n - counted)
+            if counted:       # it replaces the gather the product made
+                self.n_collective_ops -= 1
+            self.flops += flops * (n - 1)
+            self.bytes += hbm * (n - 1)
+            pl[d] = Replicate() if kind == "gather" else q
+        if pl != list(x.placements):
+            x = _wrap(torch.empty(_local_shape(x.shape, pl, mesh),
+                                  dtype=x.dtype, device="meta"), mesh, pl,
+                      x.shape)
+        return x
 
     def __enter__(self):
         from ..models import sharding
         self._saved_hook = sharding.REDISTRIBUTE
-        sharding.REDISTRIBUTE = self.redistribute
+        sharding.REDISTRIBUTE = lambda x, want: self.redistribute(x, want,
+                                                                  True)
         return super().__enter__()
 
     def __exit__(self, *exc):
         from ..models import sharding
         sharding.REDISTRIBUTE = self._saved_hook
         return super().__exit__(*exc)
+
+
+class _Probe(Exception):
+    """DTensor would choose a collective (``ShardedCost._probe``)."""
 
 
 # ops that keep a partial input partial when every DTensor operand has
@@ -337,26 +461,35 @@ class _Redistribute(torch.autograd.Function):
     ``DTensor.redistribute``'s backward does), counted the same way."""
 
     @staticmethod
-    def forward(ctx, x, want, cost):
+    def forward(ctx, x, want, cost, hint):
         from torch.distributed.tensor import Replicate
         ctx.cost = cost
         # where the forward only took a slice (replicated to sharded), the
         # gradient keeps its shards: a replicated value's gradient may lie
-        # sharded (XLA places a cotangent so), and gathering it is waste
+        # sharded (XLA places a cotangent so), and gathering it is waste;
+        # a hint carried back to its product leaves the output's gradient
+        # replicated there, as the product's output was
+        if hint:
+            x = cost._carry(x, want)
         ctx.back = [q if p.is_replicate() and q.is_shard() else
                     Replicate() if p.is_partial() else p
                     for p, q in zip(x.placements, want)]
         return _wrap(cost.localize(x, want, x.device_mesh), x.device_mesh,
-                     want)
+                     want, x.shape)
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.cost.redistribute(grad, ctx.back), None, None
+        return ctx.cost.redistribute(grad, ctx.back), None, None, None
 
 
 def _dtensor():
     from torch.distributed.tensor import DTensor
     return DTensor
+
+
+def _storage(t):
+    """The storage ``t`` and its views share (``meta`` has no data)."""
+    return t.untyped_storage()._cdata
 
 
 def _axis_dims(mesh):
@@ -388,12 +521,54 @@ def _placements_of(x, ndim):
         else [Replicate()] * ndim
 
 
-def _wrap(local, mesh, pl):
-    """A DTensor of ``local`` shards at placements ``pl``."""
-    shape = list(local.shape)
+def _local_shape(shape, pl, mesh):
+    """Rank 0's shard of a tensor of global ``shape`` at placements
+    ``pl``: ceil(n / k) along each sharded dim (``torch.chunk``'s first
+    shard, XLA's padded one)."""
+    out = list(shape)
     for d, p in enumerate(pl):
         if p.is_shard():
-            shape[p.dim] *= mesh.size(d)
+            out[p.dim] = -(-out[p.dim] // mesh.size(d))
+    return out
+
+
+def _uneven_at(x, p) -> bool:
+    """Whether placement ``p`` of DTensor ``x`` shards a dim that its mesh
+    dims do not divide."""
+    return p.is_shard() and x.shape[p.dim] % _numel(
+        [x.device_mesh.size(e) for e, q in enumerate(x.placements)
+         if q.is_shard(p.dim)]) != 0
+
+
+def _uneven(tensors) -> bool:
+    """Whether a DTensor among ``tensors`` is sharded unevenly."""
+    return any(_uneven_at(x, p) for x in tensors
+               if isinstance(x, _dtensor()) for p in x.placements)
+
+
+def _global_out(func, args, kwargs):
+    """``func``'s output at its DTensor operands' global shapes (``meta``,
+    not counted): a rule's output's global shape where local x mesh size
+    would be the padded size of an uneven shard."""
+    dt = _dtensor()
+
+    def glob(x):
+        if isinstance(x, dt):
+            return torch.empty(x.shape, dtype=x.dtype, device="meta")
+        return x.to("meta") if isinstance(x, torch.Tensor) else x
+    return func(*tree_map_only(torch.Tensor, glob, args),
+                **tree_map_only(torch.Tensor, glob, kwargs))
+
+
+def _wrap(local, mesh, pl, shape=None):
+    """A DTensor of ``local`` shards at placements ``pl``; its global
+    ``shape``, where not given, the shards' times the mesh dims' sizes
+    (exact where they divide)."""
+    if shape is None:
+        shape = list(local.shape)
+        for d, p in enumerate(pl):
+            if p.is_shard():
+                shape[p.dim] *= mesh.size(d)
     full = torch.empty(shape, device="meta")
     return _dtensor().from_local(local, mesh, pl, run_check=False,
                                  shape=full.shape, stride=full.stride())
@@ -435,10 +610,11 @@ def _embedding(cost, func, args, kwargs):
     out = cost.run(func, (w, i) + tuple(args[2:]), kwargs)
     for _ in range(_axes_over(mesh, reduce)):
         cost.add_collective("all-reduce", out.numel() * out.element_size())
-    out = _wrap(out, mesh, out_pl)
+    shape = tuple(indices.shape) + tuple(weight.shape[1:])
+    out = _wrap(out, mesh, out_pl, shape)
     keep = [ip if ip.is_shard() else p for p, ip in zip(out_pl, ipl)]
     return out if keep == out_pl else _wrap(
-        cost.localize(out, keep, mesh), mesh, keep)  # a slice: no collective
+        cost.localize(out, keep, mesh), mesh, keep, shape)  # a slice
 
 
 def _embedding_backward(cost, func, args, kwargs):
@@ -451,33 +627,50 @@ def _embedding_backward(cost, func, args, kwargs):
     g_want, out_pl, rows = [], [], num_weights
     i_want = [p if p.is_shard() else Replicate() for p in ipl]
     gpl = _placements_of(grad, mesh.ndim)
+    masked = []   # mesh dims on which the gradient is replicated
     for d, (ip, wp, gp) in enumerate(zip(ipl, wpl, gpl)):
-        if ip.is_shard():
+        if wp.is_shard(0):
+            # each device scatters the whole gradient into its own rows, as
+            # XLA scatters the transpose of a masked gather (MoE's combine
+            # and dispatch): a gradient sharded along the looked-up
+            # positions is replicated as XLA replicates it, by a masked
+            # gather of each device's positions and an all-reduce
+            g_want.append(Replicate())
+            i_want[d] = Replicate()
+            out_pl.append(wp)
+            rows = -(-rows // mesh.size(d))
+            if gp.is_shard():
+                masked.append(d)
+        elif ip.is_shard():
             g_want.append(ip)
             out_pl.append(Partial())
         elif not wp.is_shard(1) and gp.is_shard() and \
                 gp.dim < indices.dim():
             # the gradient arrives sharded along the looked-up positions
-            # (the MoE buffer's slots, sharded by the buffer's hint): each
-            # device adds its positions' rows into a partial gradient of
-            # the whole table, as XLA scatters a sharded cotangent
+            # of a replicated table: each device adds its positions' rows
+            # into a partial gradient of the whole table, as XLA scatters
+            # a sharded cotangent
             g_want.append(gp)
             i_want[d] = gp
             out_pl.append(Partial())
-        elif wp.is_shard(0):
-            g_want.append(Replicate())
-            out_pl.append(wp)
-            rows //= mesh.size(d)
         elif wp.is_shard(1):
             g_want.append(type(wp)(grad.dim() - 1))
             out_pl.append(wp)
         else:
             g_want.append(Replicate())
             out_pl.append(Replicate())
-    g = cost.localize(grad, g_want, mesh)
+    if masked:
+        grad = cost.redistribute(grad, [gpl[d] if d in masked else p
+                                        for d, p in enumerate(g_want)])
+        g = torch.empty(_local_shape(grad.shape, g_want, mesh),
+                        dtype=grad.dtype, device="meta")
+        for _ in range(_axes_over(mesh, masked)):
+            cost.add_collective("all-reduce", g.numel() * g.element_size())
+    else:
+        g = cost.localize(grad, g_want, mesh)
     i = cost.localize(indices, i_want, mesh)
     out = cost.run(func, (g, i, rows) + tuple(args[3:]), kwargs)
-    return _wrap(out, mesh, out_pl)
+    return _wrap(out, mesh, out_pl, (num_weights, grad.shape[-1]))
 
 
 def _index(cost, func, args, kwargs):
@@ -522,7 +715,7 @@ def _index(cost, func, args, kwargs):
     out = cost.run(func, (xl, [il]), kwargs)
     for _ in range(_axes_over(mesh, reduce)):
         cost.add_collective("all-reduce", out.numel() * out.element_size())
-    return _wrap(out, mesh, out_pl)
+    return _wrap(out, mesh, out_pl, tuple(i.shape) + tuple(x.shape[1:]))
 
 
 def _gather(cost, func, args, kwargs):
@@ -560,7 +753,7 @@ def _gather(cost, func, args, kwargs):
     for _ in range(_axes_over(mesh, reduce)):
         cost.add_collective("all-reduce", out.numel() * out.element_size())
     return _wrap(out, mesh, [Replicate() if d in reduce else p
-                             for d, p in enumerate(want_i)])
+                             for d, p in enumerate(want_i)], idx.shape)
 
 
 def _index_tensors(func, args):
@@ -626,7 +819,8 @@ def _scatter(cost, func, args, kwargs):
                    tree_map_only(torch.Tensor, unwrap, kwargs))
     if func._schema.is_mutable:
         return self_
-    return _wrap(out, mesh, pl if local else rep)
+    return _wrap(out, mesh, pl if local else rep,
+                 self_.shape if local else None)
 
 
 def _pad(cost, func, args, kwargs):
@@ -639,7 +833,7 @@ def _pad(cost, func, args, kwargs):
             for p in x.placements]
     out = cost.run(func, (cost.localize(x, want, mesh),) + tuple(args[1:]),
                    kwargs)
-    return _wrap(out, mesh, want)
+    return _wrap(out, mesh, want, _global_out(func, args, kwargs).shape)
 
 
 def _diagonal_backward(cost, func, args, kwargs):
@@ -651,16 +845,10 @@ def _diagonal_backward(cost, func, args, kwargs):
     # grad's leading dims are the input's other dims in order, its last the
     # diagonal (sharded like dim1 of the input)
     dims = [k for k in range(len(sizes)) if k not in (d1, d2)] + [d1]
-    pl = []
-    for d, p in enumerate(grad.placements):
-        if p.is_shard():
-            pl.append(Shard(dims[p.dim]))
-            sizes[dims[p.dim]] //= mesh.size(d)
-        else:
-            pl.append(p)
-    out = cost.run(func, (grad._local_tensor, sizes, offset, d1, d2)
-                   + tuple(args[5:]), kwargs)
-    return _wrap(out, mesh, pl)
+    pl = [Shard(dims[p.dim]) if p.is_shard() else p for p in grad.placements]
+    out = cost.run(func, (grad._local_tensor, _local_shape(sizes, pl, mesh),
+                          offset, d1, d2) + tuple(args[5:]), kwargs)
+    return _wrap(out, mesh, pl, sizes)
 
 
 def _sort(cost, func, args, kwargs):
@@ -674,7 +862,7 @@ def _sort(cost, func, args, kwargs):
     want = [Replicate() if p.is_shard(dim) else p for p in x.placements]
     out = cost.run(func, (cost.localize(x, want, mesh),) + tuple(args[1:]),
                    kwargs)
-    return tuple(_wrap(o, mesh, want) for o in out)
+    return tuple(_wrap(o, mesh, want, x.shape) for o in out)
 
 
 def _diagonal(cost, func, args, kwargs):
@@ -697,7 +885,8 @@ def _diagonal(cost, func, args, kwargs):
           Shard(others.index(p.dim)) if p.is_shard() else p
           for p in x.placements]
     out = cost.run(func, (x._local_tensor,) + tuple(args[1:]), kwargs)
-    return _wrap(out, mesh, pl)
+    return _wrap(out, mesh, pl, _global_out(func, (x,) + tuple(args[1:]),
+                                            kwargs).shape)
 
 
 def _slice_shares(x_pl, mesh, dim, size, start, length):
@@ -740,17 +929,19 @@ def _slice(cost, func, args, kwargs):
         return _to_dtensor(cost, func, args, kwargs)
     shares = None if step != 1 else _slice_shares(
         x.placements, mesh, dim, size, start, length)
+    shape = list(x.shape)
+    shape[dim] = length
     if shares is None:
         want = [Replicate() if p.is_shard(dim) else p for p in x.placements]
         out = cost.run(func, (cost.localize(x, want, mesh), dim, start, end,
                               step), {})
-        return _wrap(out, mesh, want)
+        return _wrap(out, mesh, want, shape)
     n, moved = shares
     out = cost.run(func, (x._local_tensor, dim, 0, length // n, 1), {})
     if moved:
         cost.add_collective("collective-permute",
                             out.numel() * out.element_size())
-    return _wrap(out, mesh, list(x.placements))
+    return _wrap(out, mesh, list(x.placements), shape)
 
 
 def _slice_backward(cost, func, args, kwargs):
@@ -776,12 +967,9 @@ def _slice_backward(cost, func, args, kwargs):
             cost.add_collective("collective-permute",
                                 g.numel() * g.element_size())
         start, end = 0, g.shape[dim]
-    local = list(sizes)
-    for d, p in enumerate(want):
-        if p.is_shard():
-            local[p.dim] //= mesh.size(d)
-    out = cost.run(func, (g, local, dim, start, end, step), {})
-    return _wrap(out, mesh, want)
+    out = cost.run(func, (g, _local_shape(sizes, want, mesh), dim, start, end,
+                          step), {})
+    return _wrap(out, mesh, want, sizes)
 
 
 def _matmul(cost, func, args, kwargs):
@@ -790,7 +978,10 @@ def _matmul(cost, func, args, kwargs):
     give a batch-sharded product, along the contraction a partial sum;
     one operand sharded along its free dim (or the batch, or the
     contraction) and the other replicated, the replicated one takes the
-    matching local slice. Where the two are sharded along different
+    matching local slice, but an operand sharded FSDP-style (along the
+    contraction over a data axis) is gathered instead where that moves
+    fewer bytes than the partial product's all-reduce (twice its
+    bytes). Where the two are sharded along different
     roles on one mesh dim, one is gathered there: the one sharded along
     the contraction when the other is sharded along a free or batch dim
     (a weight sharded FSDP-style over the tokens' axis), else the smaller
@@ -807,8 +998,12 @@ def _matmul(cost, func, args, kwargs):
     roles_b = {nd - 2: "k", nd - 1: "n"}
     if nd == 3:
         roles_a[0] = roles_b[0] = "b"
+    la, lb = a._local_tensor.shape, b._local_tensor.shape
     size_a = a._local_tensor.numel() * a.element_size()
     size_b = b._local_tensor.numel() * b.element_size()
+    # the local product's bytes, its operands sliced to each other's shards
+    out_b = la[-2] * lb[-1] * (min(la[0], lb[0]) if nd == 3 else 1) * \
+        a.element_size()
     want_a, want_b, out_pl = [], [], []
     for d, (pa, pb) in enumerate(zip(a.placements, b.placements)):
         ra = roles_a[pa.dim] if pa.is_shard() and mesh.size(d) > 1 else None
@@ -820,6 +1015,14 @@ def _matmul(cost, func, args, kwargs):
                 ra = None
             else:
                 rb = None
+        elif "k" in (ra, rb) and None in (ra, rb) and \
+                axis_of(mesh.mesh_dim_names[d]) in DP and (
+                    size_a if ra else size_b) * mesh.size(d) < 2 * out_b:
+            # sharded FSDP-style (the contraction over a data axis)
+            # against a replicated operand (MoE's expert buffer): gathered
+            # where that moves fewer bytes than the partial product's
+            # all-reduce
+            ra = rb = None
         role = ra or rb
         if role is None:
             want_a.append(Replicate())
@@ -832,9 +1035,30 @@ def _matmul(cost, func, args, kwargs):
         want_b.append(Shard(dim_b) if dim_b is not None else Replicate())
         out_pl.append(Partial() if role == "k" else
                       Shard({"b": 0, "m": nd - 2, "n": nd - 1}[role]))
-    out = cost.run(func, (cost.localize(a, want_a, mesh),
-                          cost.localize(b, want_b, mesh)), kwargs)
-    return _wrap(out, mesh, out_pl)
+    al, bl = cost.localize(a, want_a, mesh), cost.localize(b, want_b, mesh)
+    flops, hbm = cost.flops, cost.bytes
+    out = cost.run(func, (al, bl), kwargs)
+    flops, hbm = cost.flops - flops, cost.bytes - hbm
+    # a free dim sharded by one operand only: what gathering that operand
+    # would change instead, the other sliced to match (a "gather") or, where
+    # the other was gathered, kept sharded (a "swap"), for ``_carry``
+    alts = {}
+    for d, (pa, pb) in enumerate(zip(a.placements, b.placements)):
+        q, n = out_pl[d], mesh.size(d)
+        if not q.is_shard() or q.dim == 0 or n == 1:
+            continue
+        kept, other = (al, b) if want_a[d].is_shard() else (bl, a)
+        ob = kept.numel() * kept.element_size()
+        if pa.is_shard() != pb.is_shard():
+            alts[d] = ("gather", 0, ob, flops,
+                       ob + out.numel() * out.element_size())
+        elif pa.is_shard() and pb.is_shard():
+            ol = other._local_tensor
+            counted = ol.numel() * ol.element_size() * n
+            alts[d] = ("swap", counted, ob, 0.0, (ob - counted / n))
+    if alts:
+        cost.products[_storage(out)] = (out, alts)
+    return _wrap(out, mesh, out_pl, tuple(a.shape[:-1]) + (b.shape[-1],))
 
 
 def _to_dtensor(cost, func, args, kwargs):
@@ -857,7 +1081,8 @@ def _elementwise(cost, func, args, kwargs):
         return _to_dtensor(cost, func, args, kwargs)
     out = cost.run(func, tuple(a._local_tensor if isinstance(a, dt) else a
                                for a in args), kwargs)
-    return _wrap(out, dts[0].device_mesh, list(dts[0].placements))
+    return _wrap(out, dts[0].device_mesh, list(dts[0].placements),
+                 _global_out(func, args, kwargs).shape)
 
 
 def _softmax(cost, func, args, kwargs):
@@ -880,7 +1105,7 @@ def _softmax(cost, func, args, kwargs):
     reduced = out.numel() // out.shape[dim] * out.element_size()
     for _ in range(1 if backward else 2):
         cost.add_collective("all-reduce", reduced)
-    return _wrap(out, mesh, pl)
+    return _wrap(out, mesh, pl, xs[0].shape)
 
 
 def _view_groups(ishape, oshape):
@@ -936,10 +1161,10 @@ def _view_placements(x, shape, merges: dict):
             order = [pl[d].dim for d in mdims]
             if order != sorted(order):
                 return None
-            for d in mdims:
-                if rem[outs[0]] % mesh.size(d):
+            for d in mdims:   # (a dim kept whole may be sharded unevenly)
+                if len(ins) > 1 and rem[outs[0]] % mesh.size(d):
                     return None
-                rem[outs[0]] //= mesh.size(d)
+                rem[outs[0]] = -(-rem[outs[0]] // mesh.size(d))
                 out[d] = Shard(outs[0])
             if len(ins) > 1:
                 merges[(shape[outs[0]], tuple(mdims))] = (
@@ -952,13 +1177,13 @@ def _view_placements(x, shape, merges: dict):
             for d in mdims:
                 if undo:
                     k = rec[1][d]
-                while k < len(outs) and rem[outs[k]] % mesh.size(d):
-                    if undo:
-                        return None
+                # (undoing a merge, the dim may be sharded unevenly)
+                while not undo and k < len(outs) and \
+                        rem[outs[k]] % mesh.size(d):
                     k += 1
                 if k == len(outs):
                     return None
-                rem[outs[k]] //= mesh.size(d)
+                rem[outs[k]] = -(-rem[outs[k]] // mesh.size(d))
                 out[d] = Shard(outs[k])
         else:
             return None
@@ -973,14 +1198,16 @@ def _view(cost, func, args, kwargs):
         known = _numel([s for s in shape if s != -1])
         shape[shape.index(-1)] = x.numel() // max(known, 1)
     pl = _view_placements(x, shape, cost.merges)
+    if pl is None and _uneven([x]):
+        x = cost.gather_uneven(x)   # XLA gathers a padded dim it reshapes
+        pl = _view_placements(x, shape, cost.merges)
+        if pl is None:
+            return _to_dtensor(cost, func, (x,) + tuple(args[1:]), kwargs)
     if pl is None:
         cost._op = func
         return NotImplemented
     mesh = x.device_mesh
-    local = list(shape)
-    for d, p in enumerate(pl):
-        if p.is_shard():
-            local[p.dim] //= mesh.size(d)
+    local = _local_shape(shape, pl, mesh)
     try:
         out = cost.run(func, (x._local_tensor, local) + tuple(args[2:]),
                        kwargs)
@@ -989,7 +1216,7 @@ def _view(cost, func, args, kwargs):
         # contiguous where the global tensor was not): a view moves no
         # bytes, so a fresh shard of the view's shape stands for it
         out = x._local_tensor.new_empty(local)
-    return _wrap(out, mesh, pl)
+    return _wrap(out, mesh, pl, shape)
 
 
 def _rules():

@@ -111,24 +111,15 @@ def is_dtensor(x) -> bool:
 
 def shard_hint(x, *spec):
     """The identity on a plain tensor; a ``DTensor`` is redistributed to
-    ``spec`` (filtered against its mesh; an axis whose mesh size does not
-    divide the dim stays unsharded)."""
+    ``spec`` (filtered against its mesh). An axis whose mesh size does
+    not divide the dim still shards it, unevenly (``torch.chunk``'s
+    shards, the last one short), as XLA keeps such a constraint and pads
+    each shard to ceil(n / k)."""
     if not is_dtensor(x):
         return x
     mesh = x.device_mesh
-    sizes = {}
-    for name, n in zip(mesh.mesh_dim_names, mesh.shape):
-        sizes[axis_of(name)] = sizes.get(axis_of(name), 1) * n
     spec = filter_spec(spec, mesh)
-
-    def size(a):
-        axes = a if isinstance(a, tuple) else (a,)
-        n = 1
-        for name in axes:
-            n *= sizes[name]
-        return n
-    spec = P(*(a if a is not None and i < x.dim() and x.shape[i] % size(a)
-               == 0 else None for i, a in enumerate(spec)))
+    spec = P(*(a if i < x.dim() else None for i, a in enumerate(spec)))
     return _redistribute(x, placements(spec, mesh))
 
 
