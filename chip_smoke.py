@@ -2498,7 +2498,9 @@ DRYRUN_CELLS = (("pod1", "minitron-4b", "train_4k"),
 # the in-batch diagonal, GIN's seed slice, decode over a position-sharded
 # cache, MoE decode and dispatch, GQA heads over model=16, MoE training
 # with the experts on data or on model, its buffer sharded unevenly on
-# (16, 2)).
+# (16, 2), each FSDP weight gathered once for a layer's recompute and
+# backward; the two-tower's in-batch products split on the items' model
+# shards).
 # ``tests/test_torch_dryrun.py`` holds them on the host and against the JAX
 # package's HLO; phase 3j on the card's machine
 DRYRUN_PINNED = {
@@ -2515,8 +2517,9 @@ DRYRUN_PINNED = {
         {"all-reduce": 6656000000.0, "all-gather": 4000000.0}, 2,
         808846500000.0, 51567054844.0),
     ("two-tower-retrieval", "train_batch", (2, 4)): (
-        {"all-reduce": 10916347984.0, "all-gather": 67108864.0}, 32,
-        3458804869155.0, 368450183640.0),
+        {"all-reduce": 10882793552.0, "collective-permute": 50331648.0,
+         "all-gather": 67108864.0}, 35,
+        1809537427491.0, 355464618456.0),
     ("gin-tu", "minibatch_lg", (2, 4)): (
         {"all-gather": 435159040.0,
          "all-reduce": 870980152.0,
@@ -2537,16 +2540,16 @@ DRYRUN_PINNED = {
         {"all-reduce": 1986177040440.0, "all-gather": 3170893824.0}, 766,
         6694563527880766.0, 92265984331020.0),
     ("mixtral-8x7b", "train_4k", (2, 4)): (
-        {"all-gather": 77446774784.0, "all-reduce": 11603287232600.0,
-         "reduce-scatter": 65536000.0}, 2262,
+        {"all-gather": 53820260352.0, "all-reduce": 11603287232600.0,
+         "reduce-scatter": 65536000.0}, 2006,
         1.832630687744905e+16, 238538519689476.0),
     ("deepseek-v2-236b", "train_4k", (2, 4)): (
-        {"all-gather": 1518843985920.0, "all-reduce": 33738947307648.0,
-         "reduce-scatter": 262144000.0}, 5250,
+        {"all-gather": 1474504949760.0, "all-reduce": 33738947307648.0,
+         "reduce-scatter": 262144000.0}, 4650,
         4.7940410324076e+16, 1463695042553704.0),
     ("mixtral-8x7b", "train_4k", (16, 2)): (
-        {"all-gather": 146599313408.0, "all-reduce": 8034387513432.0,
-         "reduce-scatter": 131072000.0}, 2262,
+        {"all-gather": 99887349760.0, "all-reduce": 8034387513432.0,
+         "reduce-scatter": 131072000.0}, 2006,
         4440809020007332.0, 67211202342532.0),
 }
 # the DRYRUN_PINNED cells of one process, strict: argv[1] is JSON [[arch,

@@ -20,7 +20,10 @@ no HLO, so the port runs the step itself, allocating nothing:
   the product), a partial sum reduced where a non-linear op consumes it
   (XLA's choice), views that keep the shards of the dims they merge or
   split, and its own rules for products, lookups, scatters, sorts,
-  slices, pads and diagonals. Where
+  slices, pads and diagonals; a checkpointed layer's recompute and
+  backward gather each FSDP weight once (``ShardedCost.recompute``), and
+  the products of a hint's gathered operand split along its shards from
+  before the gather (the two-tower's in-batch backward). Where
   grouped-query heads split the model axis's shards across two dims, the
   axis is factored into two mesh dims (``model_axis_factors``). A
   collective DTensor would still choose is listed in the cell's
@@ -194,7 +197,23 @@ class ShardedCost(StepCost):
     * the gradient of a redistribution that only sliced stays sharded,
       and a lookup's backward with a gradient sharded along the looked-up
       positions of a replicated table scatters into a partial gradient
-      of the whole table.
+      of the whole table;
+    * a weight (a view of a parameter's shard: ``weights``) gathered in
+      a checkpointed layer's recompute is kept for the layer's backward
+      (``recompute``, entered through ``models.sharding.RECOMPUTE``):
+      one gather for the recomputed forward and the backward products,
+      as XLA's backward loop body gathers it;
+    * a hint that moves a dim's shards from some mesh dims to others
+      (the two-tower's items onto the model axis) is one
+      collective-permute of the new shard, and its gradient moves back;
+    * a product one of whose operands a hint gathered, along a dim its
+      shards from before the gather split, where the other operand is
+      replicated there, runs on those shards into a partial sum,
+      all-reduced at once (``_presplit``: the two-tower's ``g @ v``);
+      the gradient of such a gather is carried back to the product
+      that makes it, which computes only the device's share
+      (``_carry``'s "slice": ``u.T @ g``); a product's partial output
+      stays partial through a transpose.
 
     Any other collective is DTensor's choice: recorded in ``implicit``
     by op and kind, and refused under ``strict``."""
@@ -213,6 +232,19 @@ class ShardedCost(StepCost):
         # {mesh dim: the other placement it could have taken there}), for
         # a hint carried back to the product (``_carry``)
         self.products = {}
+        # the storages of the parameters' shards -> the shard
+        # (``weight_key``)
+        self.weights = {}
+        # from the start of a checkpointed layer's recompute through its
+        # backward (``recompute``): the (weight key, mesh dim) of every
+        # weight gathered there, which ``localize`` redistributes again at
+        # no cost
+        self.memo = None
+        self._depth = 0
+        # a hint's gathered output's key (``_key``) -> (it, the placements
+        # it had, its global shape): ``_matmul`` contracts along those
+        # shards where they shard the contraction
+        self.gathered = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -225,7 +257,19 @@ class ShardedCost(StepCost):
             return rule(self, func, args, kwargs)
         dts = [a for a in tree_flatten((args, kwargs))[0]
                if isinstance(a, _dtensor())]
-        if any(p.is_partial() for a in dts for p in a.placements) and not (
+        partial = any(p.is_partial() for a in dts for p in a.placements)
+        if partial and _transpose(func, args):
+            # a product's partial output stays partial through a transpose
+            # (the gradient of ``u @ v.T``'s ``v``), reduced where XLA
+            # would: at the hint's gradient, after ``_carry``
+            from torch.distributed.tensor import Shard
+            x = args[0]
+            pl = [Shard(1 - p.dim) if p.is_shard() else p
+                  for p in x.placements]
+            return _wrap(self.run(func, (x._local_tensor,) + tuple(args[1:]),
+                                  kwargs), x.device_mesh, pl,
+                         (x.shape[1], x.shape[0]))
+        if partial and not (
                 func._overloadpacket in _LINEAR and
                 all(a.placements == dts[0].placements for a in dts) and
                 len(dts) == len([a for a in args[:2] if isinstance(
@@ -320,7 +364,39 @@ class ShardedCost(StepCost):
             self._count(func, args, kwargs, out)
         return out
 
-    def localize(self, x, want, mesh):
+    def hold_weights(self, tensors):
+        """Mark ``tensors`` (the step's parameters) as weights: views of
+        their shards (a layer's slice of a stacked weight) are what a
+        layer's recompute gathers once for its backward (``recompute``).
+        A cast makes another tensor, not a weight: the configs that shard
+        weights FSDP-style keep them in the compute dtype."""
+        for t in tensors:
+            loc = t._local_tensor
+            self.weights[_storage(loc)] = loc
+
+    def weight_key(self, x):
+        """A weight's key (its shard's storage, offset and size: every
+        view of one layer's weight has it), or None for any other
+        tensor."""
+        if not isinstance(x, _dtensor()):
+            return None
+        loc = x._local_tensor
+        return _key(loc) if _storage(loc) in self.weights else None
+
+    @contextlib.contextmanager
+    def recompute(self):
+        """Entered where a checkpointed layer's recompute begins
+        (``models.sharding.RECOMPUTE``): a new memo of gathered weights,
+        kept through the layer's backward, as XLA's backward loop body
+        gathers each FSDP weight once for its rematerialized forward and
+        its transposes (FSDP2's unshard in a backward pre-hook): a weight
+        the memo holds gathered on a mesh dim is redistributed there at
+        no cost (``localize``). The forward's own gathers are not kept:
+        the checkpoint saves nothing."""
+        self.memo = set()
+        yield
+
+    def localize(self, x, want, mesh, key=None):
         """``x``'s local tensor at placements ``want`` (``meta``),
         counting the collectives of the redistribution: partial to
         replicated an all-reduce (one over every such mesh dim), partial
@@ -330,7 +406,9 @@ class ShardedCost(StepCost):
         is a local slice. A dim that its mesh dims do not divide is
         sharded as XLA pads it: each shard ceil(n / k) (rank 0's, the one
         counted), a gather's output k x ceil(n / k), the padding sliced
-        off after."""
+        off after. ``key``: ``x`` is that weight (``weight_key``); a mesh
+        dim the recompute's memo holds it gathered on moves nothing, and
+        one gathered here goes into the memo."""
         if not isinstance(x, _dtensor()):
             return x
         shape = list(x._local_tensor.shape)
@@ -344,6 +422,16 @@ class ShardedCost(StepCost):
             for d, (p, q) in enumerate(zip(x.placements, want)))
         if reduced:
             self.add_collective("all-reduce", _numel(shape) * item)
+        for _t, src, dst in _moves(x, want):
+            # a dim's shards moved from some mesh dims to others (the
+            # two-tower's items onto the model axis, and their gradient
+            # back): one collective-permute of the new shard, as XLA
+            # moves it
+            for d in src + dst:
+                cur[d] = want[d]
+            shape = _local_shape(x.shape, cur, mesh)
+            self.add_collective("collective-permute", _numel(shape) * item)
+        memo = self.memo if key is not None else None
         for dims in _axis_dims(mesh):   # one collective per axis and kind
             before = list(shape)
             kinds = set()
@@ -351,6 +439,11 @@ class ShardedCost(StepCost):
                 p, q, n = cur[d], want[d], mesh.size(d)
                 cur[d] = q
                 if p == q or n == 1:
+                    continue
+                if memo is not None and p.is_shard() and (key, d) in memo:
+                    shape[p.dim] *= n        # the memo's gather, sliced
+                    if q.is_shard():
+                        shape[q.dim] = -(-shape[q.dim] // n)
                     continue
                 if p.is_partial():
                     if q.is_shard():
@@ -368,6 +461,10 @@ class ShardedCost(StepCost):
                 self.add_collective(kind, _numel(shape) * item,
                                     _numel(before) * item)
             shape = _local_shape(x.shape, cur, mesh)
+        if memo is not None:
+            # a weight gathered in a recompute or its backward: kept
+            memo.update((key, d) for d, (p, q) in enumerate(
+                zip(x.placements, want)) if p.is_shard() and q.is_replicate())
         out = torch.empty(shape, dtype=x.dtype, device="meta")
         key = _storage(x._local_tensor)
         if key in self.products and all(
@@ -378,21 +475,43 @@ class ShardedCost(StepCost):
             self.products[_storage(out)] = self.products.pop(key)
         return out
 
-    def redistribute(self, x, want, hint=False):
+    def redistribute(self, x, want, hint=False, carry=()):
         """``x`` at placements ``want`` (``shard_hint``, ``shard_like``
         and the partial sums the dry-run reduces), counted by
         ``localize``; differentiable, as ``DTensor.redistribute`` is. A
         ``hint`` is first carried back to the product that made ``x``
-        (``_carry``)."""
+        (``_carry``: a gather or a swap; ``carry`` names the kinds
+        otherwise). A hint that gathers ``x`` records its output with
+        the placements it had (``gathered``, for ``_matmul``)."""
         want = list(want)
         if torch.is_grad_enabled() and x.requires_grad:
             return _Redistribute.apply(x, want, self, hint)
+        carry = _HINT if hint else carry
+        if carry:
+            x = self._carry(x, want, carry)
+        out = _wrap(self.localize(x, want, x.device_mesh), x.device_mesh,
+                    want, x.shape)
         if hint:
-            x = self._carry(x, want)
-        return _wrap(self.localize(x, want, x.device_mesh), x.device_mesh,
-                     want, x.shape)
+            self._gathered(x, out)
+        return out
 
-    def _carry(self, x, want):
+    def _gathered(self, x, out):
+        """Record ``out``, a hint's output, where the hint gathered ``x``
+        on some mesh dim (not a move, ``_moves``): its shard's key ->
+        (it, the placements ``x`` had, its global shape). Whether it
+        did."""
+        moved = {d for _t, src, dst in _moves(x, out.placements)
+                 for d in src + dst}
+        if any(p.is_shard() and q.is_replicate() and d not in moved
+               for d, (p, q) in enumerate(zip(x.placements,
+                                              out.placements))):
+            loc = out._local_tensor
+            self.gathered[_key(loc)] = (loc, list(x.placements),
+                                        tuple(x.shape))
+            return True
+        return False
+
+    def _carry(self, x, want, kinds=None):
         """A hint on a product's output carried back to the product, as
         XLA's propagation gives a dot its constraint's placement and
         partitions the dot to produce it. On a mesh dim where the output's
@@ -403,8 +522,14 @@ class ShardedCost(StepCost):
         output); a hint that wants the other operand's free dim sharded
         there, where the product gathered that other operand (the smaller
         of two sharded apart), gathers the first one instead (MoE decode:
-        w2 gathered, not the tokens' activations, and no all-to-all).
-        Returns ``x`` at its new placements."""
+        w2 gathered, not the tokens' activations, and no all-to-all). A
+        "slice" (the gradient of a hint's gather, going back to the
+        gathered value's shards): where the product's output is
+        replicated on a mesh dim and the hint wants it sharded there,
+        the product computes only this device's share (the two-tower's
+        ``u.T @ g`` only the device's own item rows). ``kinds``: those
+        carried (a hint's: gather and swap). Returns ``x`` at its new
+        placements."""
         from torch.distributed.tensor import Replicate
         loc = x._local_tensor
         rec = self.products.pop(_storage(loc), None)
@@ -412,14 +537,38 @@ class ShardedCost(StepCost):
             return x
         mesh, pl = x.device_mesh, list(x.placements)
         out_b = loc.numel() * loc.element_size()
-        for d, (kind, counted, gather, flops, hbm) in rec[1].items():
+        for d, (kind, counted, gather, flops, hbm, key) in rec[1].items():
             n, p, q = mesh.size(d), pl[d], want[d]
+            if kind not in (kinds or _HINT):
+                continue
+            if kind == "slice":
+                # ``gather`` is the product's global output shape, ``hbm``
+                # its (a, b, output) local bytes
+                o = _same_dim(gather, x.shape, q.dim) \
+                    if p.is_replicate() and q.is_shard() and \
+                    x.shape[q.dim] % n == 0 else None
+                if o is None:
+                    continue
+                role = "bmn"[-len(gather):][o]
+                part = hbm[2] + hbm[0] * (role in "bm") + \
+                    hbm[1] * (role in "bn")
+                self.flops -= flops * (n - 1) / n
+                self.bytes -= part * (n - 1) / n
+                pl[d] = q
+                continue
             if not p.is_shard() or (q.is_shard() if kind == "gather" else
                                     not q.is_shard() or q.dim == p.dim):
                 continue
-            if kind == "gather" and gather >= out_b:
+            # a weight a recompute already gathered costs nothing more
+            held = kind == "gather" and self.memo is not None and \
+                key is not None and (key, d) in self.memo
+            if kind == "gather" and gather >= out_b and not held:
                 continue
-            self.add_collective("all-gather", gather * n - counted)
+            if kind == "gather" and self.memo is not None and \
+                    key is not None:
+                self.memo.add((key, d))
+            if not held:
+                self.add_collective("all-gather", gather * n - counted)
             if counted:       # it replaces the gather the product made
                 self.n_collective_ops -= 1
             self.flops += flops * (n - 1)
@@ -433,15 +582,62 @@ class ShardedCost(StepCost):
 
     def __enter__(self):
         from ..models import sharding
-        self._saved_hook = sharding.REDISTRIBUTE
+        self._saved_hook = sharding.REDISTRIBUTE, sharding.RECOMPUTE
         sharding.REDISTRIBUTE = lambda x, want: self.redistribute(x, want,
                                                                   True)
+        sharding.RECOMPUTE = self.recompute
+        self._depth += 1
         return super().__enter__()
 
     def __exit__(self, *exc):
         from ..models import sharding
-        sharding.REDISTRIBUTE = self._saved_hook
+        sharding.REDISTRIBUTE, sharding.RECOMPUTE = self._saved_hook
+        self._depth -= 1
+        if not self._depth:
+            self.memo = None
         return super().__exit__(*exc)
+
+
+_HINT = ("gather", "swap")   # what a hint carries back to its product
+
+
+def _key(loc):
+    """A shard's key: its storage, offset and size (its views that keep
+    every element, a transpose among them, share it)."""
+    return _storage(loc), loc.storage_offset(), loc.numel()
+
+
+def _same_dim(shape, of, dim):
+    """Dim ``dim`` of a tensor of global shape ``of``, in a view of it of
+    global ``shape``: the same tensor or its transpose (a matrix); None
+    for any other view."""
+    if tuple(shape) == tuple(of):
+        return dim
+    if len(shape) == 2 and tuple(shape) == tuple(of)[::-1]:
+        return 1 - dim
+    return None
+
+
+def _moves(x, want):
+    """The tensor dims of DTensor ``x`` whose shards move from some mesh
+    dims to others at placements ``want``, each new shard inside one old
+    one or made of whole old ones, evenly: (dim, source mesh dims,
+    target mesh dims)."""
+    mesh, out = x.device_mesh, []
+    for t in range(x.dim()):
+        src = [d for d, p in enumerate(x.placements)
+               if p.is_shard(t) and mesh.size(d) > 1]
+        dst = [d for d, q in enumerate(want)
+               if q.is_shard(t) and mesh.size(d) > 1]
+        ns = _numel([mesh.size(d) for d in src])
+        nd = _numel([mesh.size(d) for d in dst])
+        if src and dst and not set(src) & set(dst) and \
+                (ns % nd == 0 or nd % ns == 0) and \
+                x.shape[t] % max(ns, nd) == 0 and \
+                all(want[d].is_replicate() for d in src) and \
+                all(x.placements[d].is_replicate() for d in dst):
+            out.append((t, src, dst))
+    return out
 
 
 class _Probe(Exception):
@@ -453,6 +649,14 @@ class _Probe(Exception):
 _LINEAR = {torch.ops.aten.add, torch.ops.aten.add_, torch.ops.aten.sub,
            torch.ops.aten.neg, torch.ops.aten.sum, torch.ops.aten.clone,
            torch.ops.aten._to_copy, torch.ops.aten.copy_}
+
+
+def _transpose(func, args) -> bool:
+    """Whether ``func`` transposes a matrix."""
+    packet = func._overloadpacket
+    return packet is torch.ops.aten.t or (
+        packet is torch.ops.aten.permute and args[0].dim() == 2
+        and list(args[1]) == [1, 0])
 
 
 class _Redistribute(torch.autograd.Function):
@@ -468,18 +672,28 @@ class _Redistribute(torch.autograd.Function):
         # gradient keeps its shards: a replicated value's gradient may lie
         # sharded (XLA places a cotangent so), and gathering it is waste;
         # a hint carried back to its product leaves the output's gradient
-        # replicated there, as the product's output was
+        # replicated there, as the product's output was; a hint that
+        # moved a dim's shards to other mesh dims moves the gradient back
         if hint:
             x = cost._carry(x, want)
-        ctx.back = [q if p.is_replicate() and q.is_shard() else
-                    Replicate() if p.is_partial() else p
-                    for p, q in zip(x.placements, want)]
-        return _wrap(cost.localize(x, want, x.device_mesh), x.device_mesh,
-                     want, x.shape)
+        back = [q if p.is_replicate() and q.is_shard() else
+                Replicate() if p.is_partial() else p
+                for p, q in zip(x.placements, want)]
+        for _t, src, dst in _moves(x, want):
+            for d in src + dst:
+                back[d] = x.placements[d]
+        ctx.back = back
+        out = _wrap(cost.localize(x, want, x.device_mesh), x.device_mesh,
+                    want, x.shape)
+        # the gradient of a hint's gather is carried back to the product
+        # that makes it, as a slice (``_carry``)
+        ctx.carry = ("slice",) if hint and cost._gathered(x, out) else ()
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.cost.redistribute(grad, ctx.back), None, None, None
+        return ctx.cost.redistribute(grad, ctx.back, carry=ctx.carry), \
+            None, None, None
 
 
 def _dtensor():
@@ -990,10 +1204,12 @@ def _matmul(cost, func, args, kwargs):
     from torch.distributed.tensor import Partial, Replicate, Shard
     dt = _dtensor()
     mesh = next(x for x in args[:2] if isinstance(x, dt)).device_mesh
+    keys = [cost.weight_key(x) for x in args[:2]]
     a, b = (cost.reduce_partial(x) if isinstance(x, dt) else
             _wrap(x.to("meta"), mesh, [Replicate()] * mesh.ndim)
             for x in args[:2])
     nd = a.dim()
+    a, b, split = _presplit(cost, args[:2], a, b)
     roles_a = {nd - 2: "m", nd - 1: "k"}
     roles_b = {nd - 2: "k", nd - 1: "n"}
     if nd == 3:
@@ -1035,7 +1251,8 @@ def _matmul(cost, func, args, kwargs):
         want_b.append(Shard(dim_b) if dim_b is not None else Replicate())
         out_pl.append(Partial() if role == "k" else
                       Shard({"b": 0, "m": nd - 2, "n": nd - 1}[role]))
-    al, bl = cost.localize(a, want_a, mesh), cost.localize(b, want_b, mesh)
+    al = cost.localize(a, want_a, mesh, keys[0])
+    bl = cost.localize(b, want_b, mesh, keys[1])
     flops, hbm = cost.flops, cost.bytes
     out = cost.run(func, (al, bl), kwargs)
     flops, hbm = cost.flops - flops, cost.bytes - hbm
@@ -1043,22 +1260,69 @@ def _matmul(cost, func, args, kwargs):
     # would change instead, the other sliced to match (a "gather") or, where
     # the other was gathered, kept sharded (a "swap"), for ``_carry``
     alts = {}
+    shape = tuple(a.shape[:-1]) + (b.shape[-1],)
     for d, (pa, pb) in enumerate(zip(a.placements, b.placements)):
         q, n = out_pl[d], mesh.size(d)
+        if q.is_replicate() and n > 1:
+            alts[d] = ("slice", 0, shape, flops, (
+                al.numel() * al.element_size(), bl.numel() * bl.element_size(),
+                out.numel() * out.element_size()), None)
         if not q.is_shard() or q.dim == 0 or n == 1:
             continue
-        kept, other = (al, b) if want_a[d].is_shard() else (bl, a)
+        kept, other, key = (al, b, keys[0]) if want_a[d].is_shard() else \
+            (bl, a, keys[1])
         ob = kept.numel() * kept.element_size()
         if pa.is_shard() != pb.is_shard():
             alts[d] = ("gather", 0, ob, flops,
-                       ob + out.numel() * out.element_size())
+                       ob + out.numel() * out.element_size(), key)
         elif pa.is_shard() and pb.is_shard():
             ol = other._local_tensor
             counted = ol.numel() * ol.element_size() * n
-            alts[d] = ("swap", counted, ob, 0.0, (ob - counted / n))
+            alts[d] = ("swap", counted, ob, 0.0, (ob - counted / n), None)
     if alts:
         cost.products[_storage(out)] = (out, alts)
-    return _wrap(out, mesh, out_pl, tuple(a.shape[:-1]) + (b.shape[-1],))
+    if split:
+        # the split's partial sum all-reduced at once, as XLA reduces it
+        # (``all-reduce.32`` of the two-tower's ``dot.14``)
+        for _ in range(_axes_over(mesh, split)):
+            cost.add_collective("all-reduce", out.numel() * out.element_size())
+        out_pl = [Replicate() if d in split else p
+                  for d, p in enumerate(out_pl)]
+    return _wrap(out, mesh, out_pl, shape)
+
+
+def _presplit(cost, args, a, b):
+    """``a`` and ``b`` (a product's operands) where one is a hint's
+    gathered output (``ShardedCost.gathered``) whose shards before the
+    gather split the contraction on a mesh dim where the other operand
+    is replicated: that one at those shards (they are still at hand), so
+    the product splits along them into a partial sum, as XLA splits the
+    two-tower's ``g @ v`` over the items' model shards. Operands
+    replicated all along are left whole. Returns both and the mesh dims
+    split."""
+    nd = a.dim()
+    ops, split = [a, b], []
+    for i, (arg, op) in enumerate(zip(args, ops)):
+        rec = cost.gathered.get(_key(arg._local_tensor)) \
+            if isinstance(arg, _dtensor()) else None
+        if rec is None:
+            continue
+        k = nd - 1 if i == 0 else nd - 2      # the operand's contraction dim
+        other = ops[1 - i]
+        pl = list(op.placements)
+        for d, pre in enumerate(rec[1]):
+            if not pre.is_shard() or not pl[d].is_replicate() or \
+                    not other.placements[d].is_replicate():
+                continue
+            if _same_dim(op.shape, rec[2], pre.dim) == k:
+                pl[d] = type(pre)(k)
+                split.append(d)
+        if pl != list(op.placements):
+            mesh = op.device_mesh
+            ops[i] = _wrap(torch.empty(_local_shape(op.shape, pl, mesh),
+                                       dtype=op.dtype, device="meta"),
+                           mesh, pl, op.shape)
+    return ops + [split]
 
 
 def _to_dtensor(cost, func, args, kwargs):
@@ -1364,6 +1628,10 @@ def model_cell(step, mesh: Mesh, hw: str, strict: bool = False) -> dict:
         args = tuple(_place_arg(a, s, dmesh, mesh)
                      for a, s in zip(step.args, step.in_specs))
         cost = ShardedCost(strict)
+        cost.hold_weights(
+            x for a in args for x in leaves(
+                a.to_tree() if isinstance(a, nn.Module) else a)
+            if isinstance(x, _dtensor()) and x.requires_grad)
         with implicit_replication(), cost:
             out = step.fn(*args)
         analysis = hlo_analysis.analyze(

@@ -386,9 +386,12 @@ def item_embed(params, item_ids):
 def twotower_inbatch_loss(params, user_ids, item_ids, cfg: TwoTowerConfig):
     """In-batch sampled softmax (positives on the diagonal)."""
     u = user_embed(params, user_ids)
-    # every device scores its users against the whole batch's items (XLA
-    # gathers the items for the product)
-    v = shard_hint(item_embed(params, item_ids), None, None)
+    # every device scores its users against the whole batch's items: XLA
+    # moves the items' rows onto the model axis (a collective-permute) and
+    # gathers them there, so that the logits' backward products split
+    # along those model shards
+    v = shard_hint(item_embed(params, item_ids), "model", None)
+    v = shard_hint(v, None, None)
     logits = (u @ v.T) / cfg.temperature                      # (B, B)
     logits = shard_hint(logits, DP, None)
     logp = torch.log_softmax(logits.float(), dim=-1)

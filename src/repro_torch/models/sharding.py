@@ -15,9 +15,13 @@ reference's ``with_sharding_constraint`` does inside a mesh;
 ``shard_like`` gives a gradient its parameter's placements. These are
 the dry-run's explicit redistributions, which it counts itself
 (``REDISTRIBUTE``); it refuses any that DTensor would choose.
+``remat_context`` tells the dry-run where a checkpointed layer's
+recompute begins (``RECOMPUTE``); outside it, it is the checkpoint's own
+``context_fn``.
 """
 from __future__ import annotations
 
+import contextlib
 import sys
 
 DP = ("pod", "data")  # canonical data-parallel axes (outermost first)
@@ -142,3 +146,33 @@ def _redistribute(x, want):
     if REDISTRIBUTE is not None:
         return REDISTRIBUTE(x, want)
     return x.redistribute(x.device_mesh, want)
+
+
+# the dry-run's hook while it runs (``launch/dryrun.py`` sets it): a
+# context manager factory, entered where a checkpointed layer's recompute
+# begins (its weights gathered once for the recompute and the backward)
+RECOMPUTE = None
+
+
+def remat_context(context_fn=None):
+    """``checkpoint``'s ``context_fn``: ``context_fn`` itself (a selective
+    policy's contexts; None: checkpoint's default, none) outside the
+    dry-run; inside it, ``context_fn``'s contexts with ``RECOMPUTE``'s
+    entered around the recompute too."""
+    if context_fn is None:
+        from torch.utils.checkpoint import noop_context_fn
+        context_fn = noop_context_fn
+    hook = RECOMPUTE
+    if hook is None:
+        return context_fn
+
+    def contexts():
+        fwd, rec = context_fn()
+        return fwd, _both(rec, hook())
+    return contexts
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield

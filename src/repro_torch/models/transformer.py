@@ -57,7 +57,7 @@ from .layers import (_inv_sqrt, chunked_attention, chunked_softmax_xent,
                      decode_attention, mlp_swiglu, rms_norm, rope)
 from .moe import moe_ffn, moe_ffn_vsharded
 from .params import Group, generator, normal
-from .sharding import DP, P, is_dtensor, shard_hint
+from .sharding import DP, P, is_dtensor, remat_context, shard_hint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -385,9 +385,11 @@ def forward(params, tokens, cfg: TransformerConfig):
     aux = torch.zeros((), dtype=torch.float32, device=embed.device)
     for lp in _layer_slices(params, cfg.n_layers):
         if cfg.remat:
-            kw = {"context_fn": _DOTS} if cfg.remat_policy == "dots" else {}
             x, aux = checkpoint(_layer, x, aux, lp, cfg, positions,
-                                use_reentrant=False, **kw)
+                                use_reentrant=False,
+                                context_fn=remat_context(
+                                    _DOTS if cfg.remat_policy == "dots"
+                                    else None))
         else:
             x, aux = _layer(x, aux, lp, cfg, positions)
     x = rms_norm(x, params["final_ln"].to(cdt))

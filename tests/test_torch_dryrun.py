@@ -14,7 +14,9 @@ metadata) against the JAX package's, on the CPU:
   (per-device FLOPs in a band, collective bytes by kind at stated
   ratios), their collectives pinned (``chip_smoke.DRYRUN_PINNED``, run
   ``strict``: no redistribution chosen by DTensor), the dry-run's rules
-  one by one (an uneven hint against the reference's HLO among them), a
+  one by one (an uneven hint, a checkpointed stack's one gather a weight
+  for its recompute and backward, and the in-batch logits' split against
+  the reference's HLO among them), a
   mirror of ``tests/test_dist.py``'s ``MINI_DRYRUN`` and a one-device
   host cell (subprocesses; the port's make and destroy fake process
   groups);
@@ -467,6 +469,60 @@ with dryrun.fake_device_mesh(mesh) as dm:
     with implicit_replication(), lax:
         a + b
     out["lax"] = {f"{op} {kind}": v for (op, kind), v in lax.implicit.items()}
+    # a two-layer checkpointed stack of (16, 16) f32 weights sharded
+    # FSDP-style (the contraction over data), on data-sharded (64, 16) rows
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models.sharding import DP, remat_context, shard_hint
+    ws = place((2, 16, 16), (None, "data", None), dm).requires_grad_()
+    x = place((64, 16), ("data", None), dm)
+    cost = dryrun.ShardedCost(strict=True)
+    cost.hold_weights([ws])
+    gathers, add = [], cost.add_collective
+    def counted(kind, out_b, in_b=0):
+        if kind == "all-gather":
+            gathers.append(out_b)
+        add(kind, out_b, in_b)
+    cost.add_collective = counted
+    with implicit_replication(), cost:
+        h = x
+        for i in range(2):
+            h = checkpoint(lambda h, w: torch.tanh(h @ w), h, ws[i],
+                           use_reentrant=False, context_fn=remat_context())
+        torch.autograd.grad(h.sum(), [ws])
+    rules["recompute_gather"] = {"n": len(gathers), "bytes": sum(gathers)}
+    # the two-tower's in-batch logits at (256, 32) f32 through a (32, 32)
+    # tower: the items hinted onto model and gathered (the model's hints),
+    # and items replicated all along; FLOPs of the products (mm) alone
+    class Products(dryrun.ShardedCost):
+        def _carry(self, x, want, kinds=None):
+            f = self.flops
+            x = super()._carry(x, want, kinds)
+            self.dot_flops += self.flops - f
+            return x
+    mm = dryrun._RULES[torch.ops.aten.mm]
+    def counted_mm(cost, func, args, kwargs):
+        f = cost.flops
+        y = mm(cost, func, args, kwargs)
+        cost.dot_flops += cost.flops - f
+        return y
+    dryrun._RULES[torch.ops.aten.mm] = counted_mm
+    for name, vspec in (("inbatch_split", ("data", None)),
+                        ("inbatch_replicated", (None, None))):
+        u0 = place((256, 32), ("data", None), dm).requires_grad_()
+        v0 = place((256, 32), vspec, dm).requires_grad_()
+        w = place((32, 32), (None, None), dm)
+        cost = Products(strict=True)
+        cost.dot_flops = 0.0
+        with implicit_replication(), cost:
+            u, v = torch.tanh(u0 @ w), torch.tanh(v0 @ w)
+            if name == "inbatch_split":
+                v = shard_hint(shard_hint(v, "model", None), None, None)
+            logits = shard_hint(u @ v.T, DP, None)
+            loss = -torch.log_softmax(logits, dim=-1).diagonal().mean()
+            torch.autograd.grad(loss, [u0, v0])
+        rules[name] = {"coll": cost.collectives()["by_kind"],
+                       "dot_flops": cost.dot_flops}
+    dryrun._RULES[torch.ops.aten.mm] = mm
 # grouped-query heads over model=16 factored (8, 2): 32 heads into 8 groups
 big = Mesh(("meta",) * 32, (2, 16), ("data", "model"))
 with dryrun.fake_device_mesh(big, (8, 2)) as dm:
@@ -612,6 +668,48 @@ if sys.argv[1] == "8":
             rules[name] = {"local": [int(n) for n in local.split(",")],
                            "coll": HloModule(text).collective_bytes()[
                                "by_kind"]}
+    # a two-layer stack of FSDP weights under jax.checkpoint over lax.scan
+    from repro.launch.hlo_cost import _OP_LINE
+    mesh = make_mesh((2, 4), ("data", "model"))
+    def stack(ws, x):
+        def body(h, w):
+            return jnp.tanh(h @ w), None
+        h, _ = jax.lax.scan(jax.checkpoint(
+            body, policy=jax.checkpoint_policies.nothing_saveable), x, ws)
+        return h.sum()
+    with set_mesh(mesh):
+        text = jax.jit(jax.grad(stack), in_shardings=(
+            NamedSharding(mesh, JP(None, "data", None)),
+            NamedSharding(mesh, JP("data", None)))).lower(
+            jax.ShapeDtypeStruct((2, 16, 16), f32),
+            jax.ShapeDtypeStruct((64, 16), f32)).compile().as_text()
+    mod = HloModule(text)
+    rules["recompute_gather"] = {
+        "n": sum(mod.mult.get(c, 0.0) for c, lines in mod.comps.items()
+                 for line in lines if (m := _OP_LINE.match(line))
+                 and m.group(3) in ("all-gather", "all-gather-start")),
+        "bytes": mod.collective_bytes()["by_kind"]["all-gather"]}
+    # the two-tower's in-batch logits (the reference's loss, no hint on the
+    # items: XLA's own choice); FLOPs of the dots alone
+    from repro.models.sharding import DP
+    def towers(u0, v0, w):
+        u, v = jnp.tanh(u0 @ w), jnp.tanh(v0 @ w)
+        logp = jax.nn.log_softmax(shard_hint(u @ v.T, DP, None), axis=-1)
+        return -jnp.mean(jnp.take_along_axis(
+            logp, jnp.arange(u.shape[0])[:, None], axis=-1))
+    for name, vspec in (("inbatch_split", JP("data", None)),
+                        ("inbatch_replicated", JP(None, None))):
+        with set_mesh(mesh):
+            text = jax.jit(jax.grad(towers, argnums=(0, 1)), in_shardings=(
+                NamedSharding(mesh, JP("data", None)),
+                NamedSharding(mesh, vspec), NamedSharding(mesh, JP()))).lower(
+                jax.ShapeDtypeStruct((256, 32), f32),
+                jax.ShapeDtypeStruct((256, 32), f32),
+                jax.ShapeDtypeStruct((32, 32), f32)).compile().as_text()
+        mod = HloModule(text)
+        rules[name] = {"coll": mod.collective_bytes()["by_kind"],
+                       "dot_flops": mod.flops() - HloModule(
+                           text.replace(" dot(", " dot_(")).flops()}
     out["rules"] = rules
 print(json.dumps(out))
 """
@@ -660,13 +758,14 @@ GQA_REF_GATHER = 2 * 16 * 4096 * 16384 * 4
 # reference's ("no_loop": over its FLOPs without kLoop fusions, see
 # ``test_model_cell_matches_reference``); the default is FLOPs within 10 %
 # and bytes 0.5-2.5x
-BANDS = {"two-tower-retrieval train_batch": (1.55, 1.70, "all", 0.5, 2.5),
+BANDS = {"two-tower-retrieval train_batch": (0.85, 0.86, "all", 0.5, 2.5),
          "deepseek-7b decode_32k": (0.9, 1.1, "no_loop", 0.02, 0.04),
          "mixtral-8x7b decode_32k": (0.9, 1.1, "no_loop", 0.1, 0.15)}
 # per held cell: each collective kind's bytes moved, port over reference:
-# "equal", ("plus", n) (the port's exceeds by 0..n bytes), a (low, high)
-# band, a float (exactly that fraction), "reference only" or ("port only",
-# n) (exactly n bytes, a kind the reference's HLO does not hold)
+# "equal", ("plus", n) (the port's exceeds by 0..n bytes), ("less", n)
+# (exactly n bytes fewer), a (low, high) band, a float (exactly that
+# fraction), "reference only" or ("port only", n) (exactly n bytes, a kind
+# the reference's HLO does not hold)
 COLL = {
     "gin-tu ogb_products": {"all-reduce": "equal", "all-gather": "equal"},
     "dlrm-rm2 train_batch": {"all-reduce": ("plus", 16)},
@@ -675,8 +774,8 @@ COLL = {
                              "collective-permute": "reference only"},
     "dlrm-rm2 retrieval_cand": {"all-reduce": "equal", "all-gather": "equal"},
     "two-tower-retrieval train_batch": {
-        "all-gather": "equal", "all-reduce": ("plus", 16),
-        "collective-permute": "reference only"},
+        "all-gather": "equal", "collective-permute": "equal",
+        "all-reduce": ("less", 2 * 16384 * 256 * 4 - 8)},
     "gin-tu minibatch_lg": {"all-gather": "equal", "all-reduce": ("plus", 16),
                             "collective-permute": "equal"},
     "deepseek-7b decode_32k": {"all-gather": 2 / 3,
@@ -691,16 +790,16 @@ COLL = {
     "minitron-8b train_4k": {"all-gather": GQA_GATHER / GQA_REF_GATHER,
                              "all-reduce": (0.49, 0.52),
                              "collective-permute": "reference only"},
-    "mixtral-8x7b train_4k": {"all-gather": (0.66, 0.70),
+    "mixtral-8x7b train_4k": {"all-gather": (0.46, 0.48),
                               "all-reduce": (0.47, 0.50),
                               "collective-permute": "reference only",
                               "reduce-scatter": ("port only", 65536000)},
-    "deepseek-v2-236b train_4k": {"all-gather": (0.49, 0.52),
+    "deepseek-v2-236b train_4k": {"all-gather": (0.49, 0.495),
                                   "all-reduce": (0.28, 0.31),
                                   "collective-permute": "reference only",
                                   "reduce-scatter": ("port only",
                                                      262144000)},
-    "mixtral-8x7b train_4k 16x2": {"all-gather": (0.74, 0.78),
+    "mixtral-8x7b train_4k 16x2": {"all-gather": (0.51, 0.53),
                                    "all-reduce": (0.47, 0.50),
                                    "collective-permute": "reference only",
                                    "reduce-scatter": ("port only",
@@ -724,9 +823,9 @@ def test_model_cell_matches_reference(cell, fake_group_cells,
     * gin-tu ogb_products: equal (an all-gather of the edges onto the
       data axis, one all-reduce of the (N, 64) f32 aggregation a layer
       forward and one backward);
-    * dlrm-rm2 train_batch, two-tower train_batch, gin-tu minibatch_lg:
-      all-reduce equal but for 8 B (the f32 scalars the two reduce, the
-      loss and the gradient norm's parts, differ by one);
+    * dlrm-rm2 train_batch, gin-tu minibatch_lg: all-reduce equal but
+      for 8 B (the f32 scalars the two reduce, the loss and the gradient
+      norm's parts, differ by one);
     * minitron-4b train_4k: all-reduce 0.49-0.52 (measured 0.5011): the
       reference's CPU compiler promotes the bf16 activation all-reduces
       to f32 (``to_apply=%add.clone_promoted``), the port reduces them in
@@ -742,17 +841,23 @@ def test_model_cell_matches_reference(cell, fake_group_cells,
       permute of 188,743,680 B (f32[4096,5760], its padded vocab);
     * dlrm-rm2 retrieval_cand: equal (the scores gathered along the
       candidates for the top-k sort, 4,000,000 B);
-    * two-tower train_batch: all-gather equal (the item vectors onto
-      every device, 67,108,864 B); the reference's collective-permute
-      (50,331,648 B) moves its items' rows between devices before its
-      model-axis gather (it takes a quarter of its data shard's rows and
-      gathers them over the model axis), where the port gathers over the
-      data axis at once. FLOPs 1.55-1.70 (measured 1.632): XLA splits the
-      two backward products of the (B/2, B) in-batch logits over the
-      model axis (``dot.7`` and ``dot.14`` on dynamic slices of the
-      logits' gradient, against the items' model shards from before its
-      gather) and all-reduces their (B/2, 256) outputs; the port computes
-      them whole on every device, 3/4 x 2.2e12 FLOPs more;
+    * two-tower train_batch: the items' rows moved onto the model axis
+      (the model's hint: a collective-permute of each device's quarter
+      of the batch, f32[16384,256]) and gathered there (67,108,864 B),
+      then the gradient's rows moved back to their data shards (a
+      (32768, 256) block): all-gather and collective-permute (50,331,648
+      B) equal. The backward products of the (B/2, B) in-batch logits
+      split as XLA's (``_presplit``, the ``slice`` carry): ``g @ v`` along
+      the items' model shards (XLA's ``dot.14``), its (B/2, 256) partial
+      all-reduced over model; ``u.T @ g`` only the device's own item rows,
+      its model shard's 16,384, where the reference's ``dot.7`` computes
+      its data shard's 32,768 (on a (32768, 32768) slice of the logits'
+      gradient), all-reduces them over data and permutes them. So FLOPs
+      0.85-0.86 (measured 0.8570: the port's is 2.75e11 less, 2 x 16,384
+      x 32,768 x 256; with it 0.987, the rest elementwise), and the
+      all-reduce the reference's less 33,554,424 B (those rows' 2 x
+      16,384 x 256 x 4 B, plus the 8 B of f32 scalars the port reduces
+      once more);
     * gin-tu minibatch_lg: all-gather equal (no gather at the seeds'
       slice); collective-permute equal (the second data shard's seed rows
       moved from the first, forward and backward: 2 x 131,072 B);
@@ -805,27 +910,37 @@ def test_model_cell_matches_reference(cell, fake_group_cells,
       (0.626, 0.505, 0.614). On (16, 2) the capacity (327,688) does not
       divide over data=16: the buffer is sharded as XLA pads it,
       ceil(C / 16) = 20,481 rows a device (the reference's
-      f32[8,20481,4096]), not gathered. All-gather, mixtral 0.66-0.70 on
-      (2, 4) and 0.74-0.78 on (16, 2) (measured 0.6788, 0.7615): the
-      FSDP expert weights are 9 bf16 gathers a layer in the port (3 in
-      the forward, 3 in the checkpoint's recomputed forward, 3 for the
-      backward products) against 6 f32 in the reference, whose backward
-      loop body gathers each weight once for both its rematerialized
-      forward and the transposes (67.65e9 against 90.19e9 B; 135.3e9
-      against 180.4e9); the reference also gathers its f32 lookup
-      outputs outside the loop (``jvp(jit(_take))``, 17.18e9 and 2.15e9
-      B) where the port gathers the bf16 embedding table's columns
-      (65.5e6, 131.1e6 B); the rest (attention weights, gates, sort keys,
-      the unembedding) is 9.74e9 against 6.71e9 B and 11.18e9 against
-      9.99e9. deepseek-v2-236b (160 experts on model) 0.49-0.52
-      (measured 0.5048): the buffer's gradient gathered along d onto the
+      f32[8,20481,4096]), not gathered. Each FSDP weight is gathered
+      once in the forward and once for a layer's recompute and backward
+      together (``ShardedCost.recompute``'s memo), as the reference's
+      backward loop body gathers each weight once for both its
+      rematerialized forward and the transposes: the expert weights 6
+      gathers a layer in both, bf16 in the port and f32 in the
+      reference, the attention weights and the router 2 in both.
+      All-gather, mixtral 0.46-0.48 on (2, 4) and 0.51-0.53 on (16, 2)
+      (measured 0.4717, 0.5188): expert weights 45.10e9 against 90.19e9
+      B (90.19e9 against 180.4e9), half; the reference also gathers its
+      f32 lookup outputs outside the loop (``jvp(jit(_take))``, 17.18e9
+      and 2.15e9 B) where the port gathers the bf16 embedding table's
+      columns (65.5e6, 131.1e6 B); the rest (attention weights, gates,
+      sort keys, the unembedding) is 8.66e9 against 6.71e9 B and 9.56e9
+      against 9.99e9. deepseek-v2-236b (160 experts on model) 0.49-0.495
+      (measured 0.4900): the buffer's gradient gathered along d onto the
       buffer's placement (1.208e12 B bf16 against the reference's f32
-      ``add_any``, 2.416e12), w2 gathered for the second expert product
-      (the hint on its output carried back to it, as XLA gathers w2:
-      no (E, C, d) output gathered and reduce-scattered back), the expert
-      weights 7 bf16 gathers a layer against 6 f32 (the port's
-      recomputed forward also gathers w2, which XLA's remat skips: the
-      backward does not need that product's output). All-reduce, mixtral
+      ``add_any``, 2.416e12: the transposes use w1 and w3 in their FSDP
+      shards, as the reference's do, though the recompute gathered
+      them), w2 gathered for the second expert product (the hint on its
+      output carried back to it, as XLA gathers w2: no (E, C, d) output
+      gathered and reduce-scattered back), the expert weights 6 gathers a
+      layer, bf16, against the reference's 6 f32 (226.5e9 against
+      453.0e9 B). The recomputed forward still runs the second expert
+      product, whose gather of w2 the memo keeps for the backward's
+      ``g @ w2.T``: the combine's backward needs its output (the gradient
+      of the routing weights), and the reference's backward body computes
+      it too (``dot.605``, f32[40,49160,5120], beside the transposes),
+      so the checkpoint's early stop, which ends the recompute after the
+      last tensor the backward needs, cannot drop it; it does drop the
+      shared experts' w2 product (its output only added). All-reduce, mixtral
       0.47-0.50 (measured 0.4874, 0.4836): bf16 against the reference's
       f32, the port's masked lookups all-reducing its (E*C, d) buffer and
       k (T, d) combine outputs where the reference all-reduces (T*k, d)
@@ -862,6 +977,8 @@ def test_model_cell_matches_reference(cell, fake_group_cells,
             assert got[kind] == want[kind]
         elif isinstance(e, tuple) and e[0] == "plus":
             assert 0 <= got[kind] - want[kind] <= e[1]
+        elif isinstance(e, tuple) and e[0] == "less":
+            assert got[kind] == want[kind] - e[1]
         elif isinstance(e, tuple):
             assert e[0] < got[kind] / want[kind] < e[1], (kind, got, want)
         else:
@@ -1028,6 +1145,59 @@ def test_dryrun_rule_uneven_hint(fake_group_cells, ref_model_cells):
         assert mine[name]["pl"] == "(Shard(dim=0), Replicate())"
         assert mine[name]["coll"] == ref[name]["coll"]
         assert mine[name]["out"] == [[10, 16], [10, 16]]
+
+
+def test_dryrun_rule_recompute_gather(fake_group_cells, ref_model_cells):
+    """Two checkpointed layers ``tanh(h @ w)`` over (16, 16) f32 weights
+    sharded FSDP-style (the contraction over data) on a (2, 4) mesh, with
+    data-sharded (64, 16) rows: the forward gathers each weight once, and
+    the recompute gathers it once more for both the recomputed product
+    and the backward's (``ShardedCost.recompute``'s memo; without it the
+    backward gathered again): 4 all-gathers of 1,024 B, as the
+    reference's ``jax.checkpoint`` (``nothing_saveable``) over
+    ``lax.scan`` gathers each weight once in its forward loop body and
+    once in its backward loop body (its HLO, 8 forced host devices,
+    trip counts multiplied)."""
+    mine = fake_group_cells["rules"]["recompute_gather"]
+    ref = ref_model_cells["rules"]["recompute_gather"]
+    assert ref == {"n": 4, "bytes": 4096.0}
+    assert mine == ref
+
+
+def test_dryrun_rule_inbatch_split(fake_group_cells, ref_model_cells):
+    """The two-tower's in-batch logits at (256, 32) f32 on (2, 4): towers
+    ``tanh(x @ w)`` over a replicated (32, 32) ``w``, ``u @ v.T`` hinted
+    to (data, None), the diagonal's log-softmax. Items hinted as the
+    model hints them (their rows onto model, then gathered): a
+    collective-permute (8,192 B) moves each device's quarter of the rows
+    onto model, an all-gather (32,768 B) gathers them, and the gradient's
+    rows move back to their data shards (16,384 B): both equal the
+    reference's HLO (no hint on its items: XLA's own choice). The
+    backward products split as XLA's: ``g @ v`` along the items' model
+    shards, the partial (128, 32) all-reduced over model; ``u.T @ g``
+    computes only the device's own 64 item rows (its model shard), where
+    the reference computes its data shard's 128 and permutes them; so
+    the port's dot FLOPs are the reference's less 2 x 64 x 128 x 32, and
+    its all-reduce the reference's less those rows' 2 x 64 x 32 x 4 B
+    plus 8 B (the loss's f32 mean, a scalar the reference does not
+    reduce). Items replicated all along are not split: dot FLOPs equal
+    the reference's, which computes them whole too (the rule is for a
+    hint's gathered operand only; a general split fired in dlrm-rm2,
+    where XLA does not split)."""
+    mine, ref = fake_group_cells["rules"], ref_model_cells["rules"]
+    split, rsplit = mine["inbatch_split"], ref["inbatch_split"]
+    assert rsplit["coll"] == {"collective-permute": 24576.0,
+                              "all-gather": 32768.0, "all-reduce": 65536.0}
+    for kind in ("collective-permute", "all-gather"):
+        assert split["coll"][kind] == rsplit["coll"][kind]
+    rows = 2 * 64 * 32 * 4
+    assert split["coll"]["all-reduce"] == rsplit["coll"]["all-reduce"] \
+        - rows + 8
+    assert split["dot_flops"] == rsplit["dot_flops"] - 2 * 64 * 128 * 32
+    whole, rwhole = mine["inbatch_replicated"], ref["inbatch_replicated"]
+    assert whole["dot_flops"] == rwhole["dot_flops"] == 7864320.0
+    assert set(whole["coll"]) == set(rwhole["coll"]) == {"all-reduce"}
+    assert whole["coll"]["all-reduce"] == rwhole["coll"]["all-reduce"] + 8
 
 
 def test_host_mesh_cell(fake_group_cells):
