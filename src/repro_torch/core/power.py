@@ -19,6 +19,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..runtime import tol_in
 
 
@@ -29,7 +30,6 @@ class PowerResult:
     iters: int
     residuals: np.ndarray         # per-recorded-step L1 residuals
     converged: bool
-    sweeps_flops: int = 0         # filled by callers that track cost
 
 
 def power_method(
@@ -48,45 +48,52 @@ def power_method(
     ``v0``: a tensor on the sweep's device (a numpy array is taken as a
     CPU tensor). ``extrapolator(history)`` gets the last four iterates as
     numpy arrays and returns a replacement iterate or None;
-    ``checkpoint_cb(step=, v=, residual=)`` gets numpy too.
+    ``checkpoint_cb(step=, v=, residual=)`` gets numpy too. With
+    ``tracing`` on it records ``power.ranking`` around the call,
+    ``power.sweep`` and ``power.residual`` each sweep, and
+    ``power.readback``.
     """
-    v = v0 if isinstance(v0, torch.Tensor) else torch.from_numpy(
-        np.asarray(v0))
-    aux = None
-    residuals = []
-    history = []  # recent iterates for extrapolation
-    converged = False
-    k = 0
-    for k in range(1, max_iter + 1):
-        v_next, aux = sweep(v)
-        if k % check_every == 0:
-            delta = float((v_next - v).abs().sum(dim=0).max())
-            residuals.append(delta)
-            if delta <= tol:
-                v = v_next
-                converged = True
-                break
-        v = v_next
-        if extrapolator is not None and extrapolate_every:
-            history.append(v.cpu().numpy())
-            if len(history) > 4:
-                history.pop(0)
-            if k % extrapolate_every == 0 and len(history) == 4:
-                v_x = extrapolator(history)
-                if v_x is not None:
-                    v = torch.as_tensor(np.asarray(v_x)).to(v.device)
-                    history.clear()
-        if checkpoint_cb is not None and checkpoint_every \
-                and k % checkpoint_every == 0:
-            checkpoint_cb(step=k, v=v.cpu().numpy(),
-                          residual=residuals[-1] if residuals else np.inf)
-    return PowerResult(
-        v=v.cpu().numpy(),
-        aux=None if aux is None else aux.cpu().numpy(),
-        iters=k,
-        residuals=np.asarray(residuals),
-        converged=converged,
-    )
+    with tracing.span("power.ranking"):
+        v = v0 if isinstance(v0, torch.Tensor) else torch.from_numpy(
+            np.asarray(v0))
+        aux = None
+        residuals = []
+        history = []  # recent iterates for extrapolation
+        converged = False
+        k = 0
+        for k in range(1, max_iter + 1):
+            with tracing.span("power.sweep"):
+                v_next, aux = sweep(v)
+            if k % check_every == 0:
+                with tracing.span("power.residual"):
+                    delta = float((v_next - v).abs().sum(dim=0).max())
+                residuals.append(delta)
+                if delta <= tol:
+                    v = v_next
+                    converged = True
+                    break
+            v = v_next
+            if extrapolator is not None and extrapolate_every:
+                history.append(v.cpu().numpy())
+                if len(history) > 4:
+                    history.pop(0)
+                if k % extrapolate_every == 0 and len(history) == 4:
+                    v_x = extrapolator(history)
+                    if v_x is not None:
+                        v = torch.as_tensor(np.asarray(v_x)).to(v.device)
+                        history.clear()
+            if checkpoint_cb is not None and checkpoint_every \
+                    and k % checkpoint_every == 0:
+                checkpoint_cb(step=k, v=v.cpu().numpy(),
+                              residual=residuals[-1] if residuals else np.inf)
+        with tracing.span("power.readback"):
+            return PowerResult(
+                v=v.cpu().numpy(),
+                aux=None if aux is None else aux.cpu().numpy(),
+                iters=k,
+                residuals=np.asarray(residuals),
+                converged=converged,
+            )
 
 
 def power_method_jit(sweep: Callable, v0, tol: float = 1e-10,

@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from ..runtime import tol_in, torch_dtype
 from . import build as _build
 from .build import Scratch, counters, reset_counters  # noqa: F401
@@ -73,6 +74,11 @@ class BsrOperand(NamedTuple):
     blocks: torch.Tensor
     idx: torch.Tensor
     row_ptr: torch.Tensor
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the operator K1 reads on each launch."""
+        return sum(t.numel() * t.element_size() for t in self)
 
 
 def natural_accum(dtype) -> torch.dtype:
@@ -243,6 +249,7 @@ def _launch_spmm(op: BsrOperand, x, cin, bs: int, accum_dtype, mask, out,
     scratch = _reserve_k1(Scratch.on(dev, scratch), [op], bs, v)
     lib = _lib()
     stream = _stream(dev)
+    op_bytes = op.nbytes
     for col0 in range(0, v, V_GROUP):
         vg = min(V_GROUP, v - col0)
         err = lib.bsr_spmm_launch(
@@ -252,6 +259,7 @@ def _launch_spmm(op: BsrOperand, x, cin, bs: int, accum_dtype, mask, out,
             col0, vg, scratch.ws.data_ptr(), scratch.cnt.data_ptr(),
             _ptr(active), stream)
         counters.bsr_spmm += 1
+        counters.bsr_spmm_bytes += op_bytes
         _raise_on(err, "bsr_spmm")
     return out
 
@@ -269,12 +277,14 @@ def bsr_scaled_matvec(blocks, idx, row_ptr, x, cin, *, bs: int,
     ``scratch`` (a ``Scratch`` on x's device, grown as needed) as its
     workspace, or a new one when None.
     """
-    if not x.is_cuda:
-        return bsr_scaled_matvec_plain(blocks, idx, row_ptr, x, cin, bs=bs,
-                                       accum_dtype=accum_dtype, mask=mask)
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    return _launch_spmm(BsrOperand(blocks, idx, row_ptr), x, cin, bs,
-                        accum_dtype, mask, out, scratch=scratch)
+    with tracing.span("k1"):
+        if not x.is_cuda:
+            return bsr_scaled_matvec_plain(blocks, idx, row_ptr, x, cin,
+                                           bs=bs, accum_dtype=accum_dtype,
+                                           mask=mask)
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        return _launch_spmm(BsrOperand(blocks, idx, row_ptr), x, cin, bs,
+                            accum_dtype, mask, out, scratch=scratch)
 
 
 # -------------------------------------------------------- sweep epilogue
@@ -580,8 +590,9 @@ class K2Buffers:
     operators and the (n_pad, V) vectors (the first phase's h a copy of h0;
     ca/ch/mask the caller's tensors where their dtype is the phase's), the
     loop state shared by the phases with its epilogue workspace, the
-    certificate ``res``, K1's ``Scratch``, and ``launches`` = [K1,
-    epilogue] kernels the graph launched, counted on the device. The
+    certificate ``res``, K1's ``Scratch``, and ``launches`` = [K1 in the
+    full-precision phase, epilogue, K1 in the bulk phase] kernels the
+    graph launched, counted on the device. The
     call's values ride along: ``tol`` per phase (full precision, bulk),
     ``max_iter`` and ``stable_sweeps``."""
 
@@ -607,7 +618,7 @@ class K2Buffers:
         self.res = torch.zeros(v, dtype=torch.float64, device=dev)
         ops = [o for p in self.phases.values() for o in (p.lt, p.lf)]
         self.scratch = _reserve_k1(Scratch(dev), ops, bs, v)
-        self.launches = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.launches = torch.zeros(3, dtype=torch.int64, device=dev)
         self.n_pad, self.v, self.k_eff, self.bs = n_pad, v, k_eff, bs
         self.tol = (tol_in(tol, dt), 0.0 if bulk_dtype is None
                     else tol_in(bulk_tol, bulk_dtype))
@@ -750,11 +761,17 @@ class K2Graph:
         b = self.bufs
         _raise_on(_lib().k2_graph_launch(self.exec, _stream(b.res.device)),
                   "k2_graph")
-        k1, ep = b.launches.tolist()  # the call's one host read
+        k1, ep, k1_lo = b.launches.tolist()  # the call's one host read
         counters.host_syncs += 1
         counters.bsr_converge += 1
-        counters.bsr_spmm += k1
+        counters.bsr_spmm += k1 + k1_lo
         counters.sweep_epilogue += ep
+        # a phase's K1 launches go to Lᵀ and L in turn, as many to each
+        for name, n in (("hi", k1), ("lo", k1_lo)):
+            if n:
+                p = b.phases[name]
+                counters.bsr_spmm_bytes += n // 2 * (p.lt.nbytes
+                                                     + p.lf.nbytes)
         hi = b.phases["hi"]
         return hi.h, hi.a, b.state.conv, b.res
 

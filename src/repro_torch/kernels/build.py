@@ -39,13 +39,15 @@ build_seconds: Dict[str, float] = {}
 class Counters:
     """Plain integer counts of kernel launches, one field per wrapper, and
     K2's host reads and graph builds; a wrapper adds one where it launches
-    its kernel (K2 adds its graph's launches after its host read)."""
+    its kernel (K2 adds its graph's launches after its host read). Beside
+    K1's launches, the operator bytes (blocks, idx and row_ptr) they read."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
         self.bsr_spmm = 0        # K1 kernel launches
+        self.bsr_spmm_bytes = 0  # operator bytes those K1 launches read
         self.sweep_epilogue = 0  # epilogue kernel launches (two per sweep or certificate)
         self.bsr_converge = 0    # K2 calls on the card
         self.host_syncs = 0      # K2's host reads (one per call)

@@ -907,7 +907,7 @@ struct K2Args {
   int* ep_cnt;        // the epilogue's CTA counter
   void* ws;           // K1's Scratch
   int* cnt;
-  unsigned long long* launches;  // [K1, epilogue] kernels launched
+  unsigned long long* launches;  // [K1 phase 0, epilogue, K1 phase 1]
   long long n_pad, V, bs, rank_k, ep_rows, ep_slices, max_iter, stable_sweeps;
   double tol, bulk_tol;
 };
@@ -976,7 +976,8 @@ struct K2Builder {
           (int)P.dtype, (int)g.bs, op.blocks, op.idx, op.row_ptr,
           (int)op.nblocks, (int)(g.n_pad / g.bs), which == 0 ? P.h : P.a,
           which == 0 ? P.ch : P.ca, V, P.mask, which == 0 ? P.a : P.hr, V,
-          col0, v, g.ws, g.cnt, nullptr, g.launches, s, attr_only);
+          col0, v, g.ws, g.cnt, nullptr, g.launches + (ph == 0 ? 0 : 2), s,
+          attr_only);
       if (err != cudaSuccess) return err;
     }
     return cudaSuccess;

@@ -10,6 +10,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..graph.structure import BSR, Graph, to_bsr
 from ..runtime import from_host, resolve_device, torch_dtype
 from .bsr_spmm import BsrOperand, bsr_converge_cols, bsr_scaled_matvec
@@ -87,14 +88,11 @@ class DeviceBSR:
         own dtype; 2-byte void blocks are bf16 patterns, as
         ``runtime.host_array`` writes them)."""
         dev = resolve_device(device)
-        idx = np.array(idx, np.int32, order="C")  # owned, writable copies
-        row_ptr = row_ptr_of(idx, n_pad // bs)
-        t = from_host(np.array(blocks, order="C"))
-        if dtype is not None:
-            t = t.to(torch_dtype(dtype))
-        return DeviceBSR(t.to(dev), torch.from_numpy(idx).to(dev),
-                         torch.from_numpy(row_ptr).to(dev), int(bs),
-                         int(n_nodes), int(n_pad))
+        with tracing.span("bsr.blocks"):
+            idx = np.array(idx, np.int32, order="C")  # owned, writable copy
+            row_ptr = row_ptr_of(idx, n_pad // bs)
+        return DeviceBSR._ship(blocks, idx, row_ptr, bs, n_nodes, n_pad, dev,
+                               dtype)
 
     @staticmethod
     def build(g: Graph, bs: int = 128, transpose: bool = False,
@@ -102,11 +100,32 @@ class DeviceBSR:
               device="cuda") -> "DeviceBSR":
         """``values`` are per-edge weights in g's edge order (default 1.0);
         ``reverse()`` preserves edge order, so they apply to either side."""
-        gg = g.reverse() if transpose else g
-        bsr = pad_empty_rows(to_bsr(gg, bs, values=values))
-        idx = np.stack([bsr.brow, bsr.bcol], axis=1).astype(np.int32)
-        return DeviceBSR.from_arrays(bsr.blocks, idx, bs, g.n_nodes,
-                                     bsr.n_padded, device, dtype)
+        dev = resolve_device(device)
+        with tracing.span("bsr.blocks"):
+            gg = g.reverse() if transpose else g
+            bsr = pad_empty_rows(to_bsr(gg, bs, values=values))
+            idx = np.stack([bsr.brow, bsr.bcol], axis=1).astype(np.int32)
+            row_ptr = row_ptr_of(idx, bsr.n_padded // bs)
+        return DeviceBSR._ship(bsr.blocks, idx, row_ptr, bs, g.n_nodes,
+                               bsr.n_padded, dev, dtype)
+
+    @staticmethod
+    def _ship(blocks, idx, row_ptr, bs, n_nodes, n_pad, dev,
+              dtype) -> "DeviceBSR":
+        """The blocks staged on the host (an owned C-ordered copy, cast to
+        ``dtype``), then every array copied to ``dev``. Traced, the copy
+        span waits for the copies to land."""
+        with tracing.span("bsr.stage"):
+            t = from_host(np.array(blocks, order="C"))
+            if dtype is not None:
+                t = t.to(torch_dtype(dtype))
+        with tracing.span("bsr.h2d"):
+            out = DeviceBSR(t.to(dev), torch.from_numpy(idx).to(dev),
+                            torch.from_numpy(row_ptr).to(dev), int(bs),
+                            int(n_nodes), int(n_pad))
+            if dev.type == "cuda" and tracing.enabled():
+                torch.cuda.synchronize(dev)
+        return out
 
     def astype(self, dtype) -> "DeviceBSR":
         """The same layout with the blocks cast (the ladder's bulk copy)."""
@@ -238,15 +257,17 @@ def hits_sweep_bsr(g: Graph, ca=None, ch=None, bs: int = 128,
     """
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
-    if dev.type == "cuda":
-        need = (bsr_nblocks(g, bs, True) + bsr_nblocks(g, bs, False)) \
-            * bs * bs * torch.empty((), dtype=dt).element_size()
-        free, _total = torch.cuda.mem_get_info(dev)
-        if need > free:
-            raise MemoryError(
-                f"hits_sweep_bsr: the two BSR operators of this graph "
-                f"(N={g.n_nodes}, bs={bs}, {dt}) need {need / 2**30:.1f} GiB "
-                f"of device memory, {free / 2**30:.1f} GiB is free")
+    with tracing.span("ops.fit"):
+        if dev.type == "cuda":
+            need = (bsr_nblocks(g, bs, True) + bsr_nblocks(g, bs, False)) \
+                * bs * bs * torch.empty((), dtype=dt).element_size()
+            free, _total = torch.cuda.mem_get_info(dev)
+            if need > free:
+                raise MemoryError(
+                    f"hits_sweep_bsr: the two BSR operators of this graph "
+                    f"(N={g.n_nodes}, bs={bs}, {dt}) need "
+                    f"{need / 2**30:.1f} GiB of device memory, "
+                    f"{free / 2**30:.1f} GiB is free")
     lt = DeviceBSR.build(g, bs, transpose=True, dtype=dtype, device=dev)
     l = DeviceBSR.build(g, bs, transpose=False, dtype=dtype, device=dev)  # noqa: E741
     ca_t = None if ca is None else torch.as_tensor(ca).to(dev, dt)

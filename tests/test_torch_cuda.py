@@ -253,6 +253,52 @@ def test_k2_wide_batch_column_groups(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bulk", [None, "float32"])
+def test_k1_and_k2_count_the_operator_bytes(cuda, bulk):
+    """``bsr_spmm_bytes`` is each K1 launch's operator (blocks, idx and
+    row_ptr) summed over the launches: for direct K1 over two column
+    groups, and for one K2 call, whose K1 launches in each phase read that
+    phase's Lᵀ and L in turn, as often as the CPU rehearsal of its graph
+    runs them."""
+    g, vecs = loop_inputs(5, 300, 6)
+    ops = [pops.DeviceBSR.build(g, 64, transpose=t, dtype="float64",
+                                device=cuda) for t in (True, False)]
+    size = lambda o: sum(t.numel() * t.element_size()  # noqa: E731
+                         for t in (o.blocks, o.idx, o.row_ptr))
+    assert ops[0].operand.nbytes == size(ops[0]) \
+        == ops[0].blocks.shape[0] * (64 * 64 * 8 + 2 * 4) \
+        + ops[0].row_ptr.numel() * 4
+    x = torch.rand(ops[0].n_pad, 20, dtype=torch.float64, device=cuda)
+    K.reset_counters()
+    K.bsr_scaled_matvec(ops[0].blocks, ops[0].idx, ops[0].row_ptr, x,
+                        x[:, :1].contiguous(), bs=64)
+    assert K.counters.bsr_spmm == 2
+    assert K.counters.bsr_spmm_bytes == 2 * size(ops[0])
+    args = [torch.tensor(v, device=cuda).contiguous() for v in vecs]
+    kw = dict(bs=64, max_iter=500, rank_k=0)
+    lo = []
+    if bulk:
+        lo = [o.astype(bulk) for o in ops]
+        kw.update(lt_lo=lo[0].operand, lf_lo=lo[1].operand, bulk_dtype=bulk,
+                  bulk_tol=1e3 * torch.finfo(TDT[bulk]).eps)
+    K.reset_counters()
+    K.bsr_converge_cols(ops[0].operand, ops[1].operand, *args, 1e-10, **kw)
+    counts = K.counters.as_dict()
+    cpu = lambda o: K.BsrOperand(*(t.cpu() for t in o))  # noqa: E731
+    kw_cpu = dict(kw, **({"lt_lo": cpu(kw["lt_lo"]),
+                          "lf_lo": cpu(kw["lf_lo"])} if bulk else {}))
+    _got, runs = K.k2_rehearse(cpu(ops[0].operand), cpu(ops[1].operand),
+                               *(a.cpu() for a in args), 1e-10, **kw_cpu)
+    hi, lo_runs = runs[("spmm", "hi")], runs.get(("spmm", "lo"), 0)
+    assert counts["bsr_spmm"] == hi + lo_runs
+    want = hi // 2 * (size(ops[0]) + size(ops[1]))
+    if bulk:
+        assert lo_runs > 0
+        want += lo_runs // 2 * (size(lo[0]) + size(lo[1]))
+    assert counts["bsr_spmm_bytes"] == want
+
+
+@pytest.mark.cuda
 def test_k2_each_call_builds_and_frees_its_graph(cuda):
     """Each call builds its own graph over its own buffers: a second call
     with another h0 and tol builds again, both match the plain loop, a
