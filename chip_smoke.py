@@ -68,17 +68,18 @@ Phases (any failure exits non-zero and prints no result line):
    run, britannica/wikipedia/jobs also held to the port on the host CPU
    (1e-10 L1, equal iters), the paper's claims and the cosine/Spearman
    agreement with QI-HITS printed as findings; (b) K1 on the whole graph:
-   ``kernels.ops.hits_sweep_bsr`` on britannica (f32, bs 128, no
-   permutation: 27,214 blocks in Lᵀ): one K1 call bit-equal to its plain
-   version, ``iters + 5`` sweeps (2 K1 launches each, counted) within
-   1e-4 of the card's ``RankingEngine`` hub, K1's device time per launch
-   beside its byte bound, the plain version and ``torch.sparse_bsr_tensor
-   @``, and one segment-sum sweep (``core.hits.hits_sweep``) of the same
-   graph; (c) ``core.power.power_method_jit`` (one CUDA graph, a WHILE
+   britannica's Lᵀ as 128 x 128 blocks (f32, no permutation: 27,214
+   blocks): one K1 call bit-equal to its plain version, K1's device time
+   per launch beside its byte bound, the plain version and
+   ``torch.sparse_bsr_tensor @``; then ``kernels.ops.hits_sweep_bsr`` (K1's
+   link form): ``iters + 5`` sweeps (2 link-form launches each, counted,
+   no blocked K1) within 1e-4 of the card's ``RankingEngine`` hub, and one
+   segment-sum sweep (``core.hits.hits_sweep``) of the same graph; (c) ``core.power.power_method_jit`` (one CUDA graph, a WHILE
    node over the captured f64 K1 sweep) against ``power_method``; (d)
    ``RankingEngine`` on the card against the CPU, with and without
    stragglers, and ``python -m repro_torch.launch.rank`` (britannica,
-   back-button, a checkpoint every 2 sweeps), then ``--resume``;
+   back-button, a checkpoint every 2 sweeps), then ``--resume``; (e) K1's
+   link form at the whole-crawl cells' shapes (``link_form_phase``);
 3f. the sharded backend (``sparse/dist.py``): both modes at S 1, 2, 4
    logical shards, every query held to a CPU dense service, host reads
    and wire bytes per sweep, a delta, a spill, the whole graph on a (4,
@@ -108,7 +109,8 @@ Phases (any failure exits non-zero and prints no result line):
    is printed beside 3i (c)'s and 3g's measured steps; every cell must be
    ``ok``;
 4. a ``{"kernels": [...]}`` line (K1's entry carries the whole-graph
-   path's numbers under ``hits_sweep_bsr``, K3's the GNN's under
+   blocked numbers under ``hits_sweep_bsr``, ``links_spmm`` the link
+   form's at each whole-crawl cell under ``cells``, K3's the GNN's under
    ``gnn``), then the contract's last line.
 
 It imports torch, numpy and the port only. K1's and K3's ``ms`` is the
@@ -1061,6 +1063,7 @@ def main():
 
     # ------------------------------------- 3e. the offline ranking path
     whole = offline(g, card, ms, device_ms, timed)
+    links = link_form_phase(card)
 
     # ------------------------------ 3f. the sharded backend (sparse.dist)
     sharded_phase(g, queries, card)
@@ -1088,6 +1091,18 @@ def main():
              bound_by=k1["float64"]["bound_by"],
              library_ms=k1["float64"]["library_ms"],
              hits_sweep_bsr=whole),
+        dict(name="links_spmm", route="cuda",
+             source="src/repro_torch/kernels/csrc/bsr_spmm.cu",
+             replaces="src/repro/kernels/bsr_spmm.py:44 on the whole-crawl "
+                      "sweep (src/repro/kernels/ops.py::hits_sweep_bsr)",
+             launches=sum(c["launches"] for c in links.values()),
+             max_abs_err=max(c[t]["max_abs_err"] for c in links.values()
+                             for t in ("lt", "l")),
+             ms=links["britannica-bb"]["lt"]["ms"],
+             plain_ms=links["britannica-bb"]["lt"]["plain_ms"],
+             bound_ms=links["britannica-bb"]["bound_ms"], bound_by="bytes",
+             library_ms=links["britannica-bb"]["lt"]["library_ms"],
+             cells=links),
         dict(name="sweep_epilogue", route="cuda",
              source="src/repro_torch/kernels/csrc/bsr_spmm.cu",
              replaces="src/repro/kernels/bsr_spmm.py:179",
@@ -1231,7 +1246,7 @@ def offline(g, card, ms, device_ms, timed):
     # ---------------------------------- (b) K1 over the whole graph
     ca, ch = accel_weights(g.indeg(), g.outdeg())
     t0 = time.perf_counter()
-    sweep, lt, lf = O.hits_sweep_bsr(g, ca, ch, bs=128, device="cuda")
+    lt = O.DeviceBSR.build(g, 128, transpose=True, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     nb = lt.blocks.shape[0]
@@ -1249,29 +1264,9 @@ def offline(g, card, ms, device_ms, timed):
     check(torch.equal(y, yp) and not scr.cnt.any(),
           f"K1 whole graph: max|y - plain| = {err:.3e} (bit-equal wanted), "
           f"or the fold counters are not 0")
-    eng, eng_ms = timed(lambda: RankingEngine(g, "accel", n_shards=8,
-                                              device="cuda").run(tol=1e-10))
-    check(eng.converged, f"engine: not converged after {eng.iters} sweeps")
-    h = torch.full((g.n_nodes,), 1.0 / g.n_nodes, dtype=torch.float32,
-                   device=dev)
-    K.reset_counters()
-    t0 = time.perf_counter()
-    for _ in range(eng.iters + 5):
-        h, _ = sweep(h)
-    torch.cuda.synchronize()
-    sweeps_ms = (time.perf_counter() - t0) * 1e3
-    launches = K.counters.bsr_spmm
-    check(launches == 2 * (eng.iters + 5),
-          f"hits_sweep_bsr: {launches} K1 launches for {eng.iters + 5} "
-          "sweeps, not 2 a sweep")
-    hub_err = float(np.abs(h.double().cpu().numpy() - eng.hub).max())
-    check(hub_err < 1e-4, f"hits_sweep_bsr: hub max abs {hub_err:.3e} from "
-          "the engine's")
-    h1 = torch.full((g.n_nodes,), 1.0 / g.n_nodes, dtype=torch.float32,
-                    device=dev)
-    t_k1 = device_ms(lambda: sweep(h1), 10, "bsr_spmm_kernel")
-    t_sweep = ms(lambda: sweep(h1), 10)
-    t_sweep_dev = device_ms(lambda: sweep(h1), 10)
+    t_k1 = device_ms(lambda: K.bsr_scaled_matvec(*lt.operand, x, cin, bs=128,
+                                                 scratch=scr),
+                     10, "bsr_spmm_kernel")
     t_plain = ms(lambda: K.bsr_scaled_matvec_plain(*lt.operand, x, cin,
                                                    bs=128), 2)
     moved = nbytes(*lt.operand, x, cin, y)
@@ -1288,6 +1283,45 @@ def offline(g, card, ms, device_ms, timed):
         t_lib = None
         lib_kind = f"unavailable: {str(e).splitlines()[0]}"
     del mat, xs
+    print(f"[K1 whole graph] {card}: britannica N={g.n_nodes} unpermuted, "
+          f"bs 128, f32, V 1: Lt {nb} blocks (of {len(per_row)}^2 = "
+          f"{len(per_row) ** 2}; {edges_per_block:.1f} edges a block; "
+          f"{per_row.min()}-{per_row.max()} per block row), built in "
+          f"{build_s:.2f} s; one call bit-equal to the plain version; "
+          f"ms={t_k1:.4f} (device, per launch) bound_ms="
+          f"{max(t_bytes, t_ops):.4f} ({moved / 1e9:.3f} GB at 3.35 TB/s) "
+          f"-> {moved / (t_k1 * 1e-3) / 1e12:.2f} TB/s; plain_ms="
+          f"{t_plain:.2f} library_ms="
+          + (f"{t_lib:.4f}" if t_lib is not None else "null")
+          + f" ({lib_kind})", flush=True)
+    del lt, y, yp, scr
+    torch.cuda.empty_cache()
+
+    # the whole-graph sweep, on K1's link form
+    sweep, lt, lf = O.hits_sweep_bsr(g, ca, ch, bs=128, device="cuda")
+    eng, eng_ms = timed(lambda: RankingEngine(g, "accel", n_shards=8,
+                                              device="cuda").run(tol=1e-10))
+    check(eng.converged, f"engine: not converged after {eng.iters} sweeps")
+    h = torch.full((g.n_nodes,), 1.0 / g.n_nodes, dtype=torch.float32,
+                   device=dev)
+    K.reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(eng.iters + 5):
+        h, _ = sweep(h)
+    torch.cuda.synchronize()
+    sweeps_ms = (time.perf_counter() - t0) * 1e3
+    launches = K.counters.k1_links
+    check(launches == 2 * (eng.iters + 5) and K.counters.bsr_spmm == 0,
+          f"hits_sweep_bsr: {launches} link-form and "
+          f"{K.counters.bsr_spmm} blocked K1 launches for {eng.iters + 5} "
+          "sweeps, not 2 and 0 a sweep")
+    hub_err = float(np.abs(h.double().cpu().numpy() - eng.hub).max())
+    check(hub_err < 1e-4, f"hits_sweep_bsr: hub max abs {hub_err:.3e} from "
+          "the engine's")
+    h1 = torch.full((g.n_nodes,), 1.0 / g.n_nodes, dtype=torch.float32,
+                    device=dev)
+    t_sweep = ms(lambda: sweep(h1), 10)
+    t_sweep_dev = device_ms(lambda: sweep(h1), 10)
     # the same graph's segment-sum sweep (core.hits.hits_sweep), f32
     edges = EdgeList.from_graph(g, dev)
     ca32, ch32 = (torch.tensor(c, dtype=torch.float32, device=dev)
@@ -1304,26 +1338,16 @@ def offline(g, card, ms, device_ms, timed):
                  library_ms=t_lib, blocks=nb, sweep_ms=t_sweep,
                  sweep_device_ms=t_sweep_dev, seg_sweep_ms=t_seg,
                  seg_sweep_device_ms=t_seg_dev)
-    print(f"[K1 whole graph] {card}: britannica N={g.n_nodes} unpermuted, "
-          f"bs 128, f32, V 1: Lt {nb} blocks (of {len(per_row)}^2 = "
-          f"{len(per_row) ** 2}; {edges_per_block:.1f} edges a block; "
-          f"{per_row.min()}-{per_row.max()} per block row), built in "
-          f"{build_s:.2f} s; one call bit-equal to the plain version; "
-          f"ms={t_k1:.4f} (device, per launch) bound_ms="
-          f"{max(t_bytes, t_ops):.4f} ({moved / 1e9:.3f} GB at 3.35 TB/s) "
-          f"-> {moved / (t_k1 * 1e-3) / 1e12:.2f} TB/s; plain_ms="
-          f"{t_plain:.2f} library_ms="
-          + (f"{t_lib:.4f}" if t_lib is not None else "null")
-          + f" ({lib_kind})", flush=True)
-    print(f"[hits_sweep_bsr] {card}: {eng.iters + 5} sweeps ({launches} K1 "
-          f"launches) in {sweeps_ms:.1f} ms; hub max abs {hub_err:.2e} from "
-          f"the engine's ({eng.iters} sweeps, {eng_ms:.1f} ms on the card); "
-          f"one sweep {t_sweep:.3f} ms (events; device {t_sweep_dev:.3f} "
-          f"ms) vs the segment-sum sweep hits_sweep {t_seg:.3f} ms "
-          f"(events; device {t_seg_dev:.3f} ms, {seg_bytes / 1e6:.1f} MB of "
-          f"index and vectors against {2 * moved / 1e9:.2f} GB of blocks)",
-          flush=True)
-    del sweep, lt, lf, y, yp, scr, edges, seg_sweep
+    print(f"[hits_sweep_bsr] {card}: {eng.iters + 5} sweeps ({launches} "
+          f"link-form K1 launches) in {sweeps_ms:.1f} ms; hub max abs "
+          f"{hub_err:.2e} from the engine's ({eng.iters} sweeps, "
+          f"{eng_ms:.1f} ms on the card); one sweep {t_sweep:.3f} ms "
+          f"(events; device {t_sweep_dev:.3f} ms) vs the segment-sum sweep "
+          f"hits_sweep {t_seg:.3f} ms (events; device {t_seg_dev:.3f} ms, "
+          f"{seg_bytes / 1e6:.1f} MB of index and vectors against "
+          f"{(lt.nbytes + lf.nbytes) / 1e6:.1f} MB of "
+          "links)", flush=True)
+    del sweep, lt, lf, edges, seg_sweep
     torch.cuda.empty_cache()
 
     # ------------------------------------------ (c) power_method_jit
@@ -1408,6 +1432,100 @@ def offline(g, card, ms, device_ms, timed):
     print(f"[offline] phase 3e: {time.perf_counter() - t_phase:.1f} s "
           f"(Table 7 {t_table:.1f} s)", flush=True)
     return whole
+
+
+LINK_CELLS = ("britannica-bb", "yahoo-bb")  # rankbench's whole-crawl crawls
+LINK_SEED = 2147830419
+
+
+def link_form_phase(card=""):
+    """Phase 3e (e): K1's link form at the whole-crawl cells' shapes (the
+    crawls of ``rankbench/configs``, f64, V 1, Ca/Ch from the degrees), on
+    both operators of ``hits_sweep_bsr``: bit for bit its plain version
+    (run on the host CPU), twice; the kernel's
+    device ms a launch beside its bound (``rankbench.roofline``'s bytes
+    for one product, half a sweep's, over 3.35 TB/s), the plain version's
+    ms (events, on the card's tensors) and ``torch.sparse_csr_tensor @``
+    (device, the library yardstick, which the port never calls); one
+    ranking to tol 1e-9 counting 2 link-form launches a sweep and no
+    blocked K1. Returns {cell: numbers} for the kernels line. Alone:
+    ``PYTHONPATH=src python -c "import sys; sys.path.insert(0, '.');
+    import chip_smoke as c; c.link_form_phase()"``."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from rankbench import roofline, webgraph
+    from repro_torch.core import accel_weights, power_method
+    from repro_torch.graph.structure import Graph
+    from repro_torch.kernels import bsr_spmm as K
+    from repro_torch.kernels import ops as O
+    dev = torch.device("cuda", 0)
+    f64 = dict(dtype=torch.float64, device=dev)
+    out = {}
+    for name in LINK_CELLS:
+        cfg = json.loads((ROOT / "rankbench" / "configs"
+                          / f"{name}.json").read_text())
+        n, src, dst = webgraph.crawl(cfg, LINK_SEED)
+        g = Graph(n, src, dst)
+        ca, ch = accel_weights(g.indeg(), g.outdeg())
+        t0 = time.perf_counter()
+        sweep, lt, lf = O.hits_sweep_bsr(g, ca, ch, dtype="float64",
+                                         device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        x = torch.full((n, 1), 1.0 / n, **f64)
+        bound = roofline.sweep_bytes(n, g.n_edges) / 2 \
+            / HBM_BYTES_PER_S * 1e3
+        row = dict(pages=n, links=g.n_edges, build_s=build_s,
+                   bound_ms=bound, bound_by="bytes")
+        for tag, op, c in (("lt", lt, ch), ("l", lf, ca)):
+            cin = torch.tensor(c, **f64)[:, None].contiguous()
+            y = K.links_scaled_matvec(op, x, cin)
+            y2 = K.links_scaled_matvec(op, x, cin)
+            yp = K.links_scaled_matvec_plain(
+                K.LinkOperand(op.ptr.cpu(), op.cols.cpu(),
+                              op.long_rows.cpu(), op.lanes),
+                x.cpu(), cin.cpu()).to(dev)
+            err = float((y - yp).abs().max())
+            check(torch.equal(y, y2) and torch.equal(y, yp),
+                  f"K1 link form {name} {tag}: two launches differ, or "
+                  f"max|y - plain| {err:.3e} (bit-equal wanted)")
+            t_dev = device_ms(lambda: K.links_scaled_matvec(op, x, cin), 20,
+                              "links_spmm_kernel")
+            t_plain = ms(lambda: K.links_scaled_matvec_plain(op, x, cin), 5)
+            mat = torch.sparse_csr_tensor(
+                op.ptr.long(), op.cols.long(),
+                torch.ones(op.cols.numel(), **f64), size=(n, n))
+            xs = x * cin
+            t_lib = device_ms(lambda: mat @ xs, 20)
+            del mat, xs
+            row[tag] = dict(ms=t_dev, plain_ms=t_plain, library_ms=t_lib,
+                            max_abs_err=err, lanes=op.lanes,
+                            long_rows=op.long_rows.numel())
+            print(f"[K1 link form {name} {tag}] {card}: N={n} links="
+                  f"{g.n_edges} lanes={op.lanes} long rows="
+                  f"{op.long_rows.numel()}: ms={t_dev:.4f} (device, a "
+                  f"launch) bound_ms={bound:.4f} (bytes) plain_ms="
+                  f"{t_plain:.4f} library_ms={t_lib:.4f} "
+                  "(torch.sparse_csr_tensor @ dense, device); bit-equal "
+                  "to the plain version, twice", flush=True)
+        K.reset_counters()
+        r = power_method(sweep, torch.full((n,), 1.0 / n, **f64), tol=1e-9,
+                         max_iter=2000)
+        launches = K.counters.k1_links
+        check(r.converged and launches == 2 * r.iters
+              and K.counters.bsr_spmm == 0,
+              f"K1 link form {name}: {launches} link-form and "
+              f"{K.counters.bsr_spmm} blocked launches for {r.iters} sweeps")
+        row.update(launches=launches, sweeps=r.iters,
+                   operator_bytes=lt.nbytes + lf.nbytes)
+        print(f"[K1 link form {name}] a ranking to 1e-9: {r.iters} sweeps, "
+              f"{launches} link-form launches, no blocked K1; "
+              f"{row['operator_bytes']} B of operators a sweep; built in "
+              f"{build_s:.2f} s", flush=True)
+        out[name] = row
+        del sweep, lt, lf
+        torch.cuda.empty_cache()
+    return out
 
 
 def served_l1(a, b):

@@ -9,6 +9,11 @@ PyTorch version of the same signature beside it:
   ``csrc/bsr_spmm.cu::bsr_spmm_kernel``: one CTA per (block, slice of
   ``K1_ROWS`` rows) writes the block's rounded product to a workspace, and
   the last CTA of each block row adds them in idx order (``Scratch``).
+* ``links_scaled_matvec`` (K1's link form, on the whole-crawl sweep
+  ``ops.hits_sweep_bsr`` in ``_bsr_kernel``'s place): y = A @ (x ⊙ cin)
+  for a 0/1 operator A stored as its links (``LinkOperand``), launched as
+  ``csrc/bsr_spmm.cu::links_spmm_kernel``: a row's links summed in f64 by
+  a fixed number of lanes, hubs by a CTA each; no workspace.
 * ``sweep_epilogue`` / ``sweep_certificate``: the per-sweep epilogue of the
   loop (normalize, residual, rank stability, conv, stop flag) and the
   final certificate, as two kernels that each run one CTA per slice of
@@ -60,6 +65,8 @@ _DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
 BLOCK_SIZES = (16, 32, 64, 128)
 V_GROUP = 16   # widest column group one K1 launch takes
 K1_ROWS = 32   # rows of a block one K1 CTA takes (bs 16: all 16)
+KL_THREADS = 256  # threads of a CTA of K1's link form (a long row's lanes)
+KL_ROUNDS = 32    # links a lane of K1's link form takes at most (long rows aside)
 EP_SLICES = 128  # slices (CTAs) the epilogue kernels aim for
 EP_MAXV = 256    # columns the epilogue kernels take
 _EPS = 1e-30
@@ -93,6 +100,8 @@ def _declare(lib):
     lib.bsr_spmm_launch.argtypes = [i, i, i, p, p, p, i, i, p, p, i, p, p, i,
                                     i, i, p, p, p, p]
     lib.bsr_spmm_launch.restype = i
+    lib.links_spmm_launch.argtypes = [i, p, p, p, i, i, i, p, p, i, p, i, p]
+    lib.links_spmm_launch.restype = i
     lib.sweep_epilogue_launch.argtypes = [i, p, p, p] + [i] * 6 + [d, ll, ll] \
         + [p] * 11
     lib.sweep_epilogue_launch.restype = i
@@ -285,6 +294,120 @@ def bsr_scaled_matvec(blocks, idx, row_ptr, x, cin, *, bs: int,
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
         return _launch_spmm(BsrOperand(blocks, idx, row_ptr), x, cin, bs,
                             accum_dtype, mask, out, scratch=scratch)
+
+
+# ----------------------------------------------------------- K1, link form
+
+
+class LinkOperand(NamedTuple):
+    """K1's link form of an n-row 0/1 operator: ``ptr`` (n + 1,) int32
+    (row i owns links ptr[i]:ptr[i+1]), ``cols`` one int32 column a link,
+    sorted by row and by column within a row, ``long_rows`` (int32) the
+    rows of more than ``KL_ROUNDS`` x ``lanes`` links, which the kernel
+    gives a CTA each, and ``lanes`` (1 to 32, a power of two), the lanes
+    every other row gets (``ops.link_operand`` fixes both from the row
+    lengths)."""
+
+    ptr: torch.Tensor
+    cols: torch.Tensor
+    long_rows: torch.Tensor
+    lanes: int
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the operator the kernel reads on each launch."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.ptr, self.cols, self.long_rows))
+
+
+def links_scaled_matvec_plain(op: LinkOperand, x, cin):
+    """Plain torch link form: y[i] = Σ over row i's links j of x[j] ⊙ cin[j],
+    each term rounded to x's dtype, summed in f64 in the kernel's order and
+    rounded once, so the two agree bit for bit. x: (n, V); cin: (n, 1) or
+    (n, V).
+
+    The kernel's order: a row of w lanes (``op.lanes``, or ``KL_THREADS``
+    for a long row) gives lane l its links l, l + w, ... added one by one
+    from 0; the lanes are added by an xor butterfly (offsets w/2 .. 1), a
+    long row's in warps of 32, whose sums are then added in warp order."""
+    dev = x.device
+    n, v = op.ptr.shape[0] - 1, x.shape[1]
+    terms = (x * cin.to(x.dtype)).double().index_select(0, op.cols.long())
+    ptr = op.ptr.long()
+    lengths = ptr[1:] - ptr[:-1]
+    long_row = lengths > KL_ROUNDS * op.lanes
+    width = torch.where(long_row, KL_THREADS, op.lanes)
+    row = torch.repeat_interleave(torch.arange(n, device=dev), lengths)
+    lane = (torch.arange(row.numel(), device=dev) - ptr[row]) % width[row]
+    # each (row, lane)'s links in link order: a stable sort keeps it
+    key = row * KL_THREADS + lane
+    order = torch.argsort(key, stable=True)
+    groups, counts = torch.unique_consecutive(key[order], return_counts=True)
+    part = torch.segment_reduce(terms.index_select(0, order), "sum",
+                                lengths=counts, axis=0, unsafe=True) \
+        if counts.numel() else terms
+    y = torch.zeros((n, v), dtype=torch.float64, device=dev)
+    for is_long, w in ((False, op.lanes), (True, KL_THREADS)):
+        rows = (long_row == is_long).nonzero().squeeze(1)
+        slot = torch.full((n,), -1, dtype=torch.long, device=dev)
+        slot[rows] = torch.arange(rows.numel(), device=dev)
+        p = torch.zeros((rows.numel() * w, v), dtype=torch.float64,
+                        device=dev)
+        mine = long_row[groups // KL_THREADS] == is_long
+        at = slot[groups[mine] // KL_THREADS] * w + groups[mine] % KL_THREADS
+        p[at] = part[mine]
+        p = p.view(rows.numel(), w // min(w, 32), min(w, 32), v)  # warps, lanes
+        idx = torch.arange(p.shape[2], device=dev)
+        o = p.shape[2] // 2
+        while o:
+            p = p + p[:, :, idx ^ o]
+            o //= 2
+        s = torch.zeros((rows.numel(), v), dtype=torch.float64, device=dev)
+        for warp in range(p.shape[1]):
+            s = s + p[:, warp, 0]
+        y[rows] = s
+    return y.to(x.dtype)
+
+
+def links_scaled_matvec(op: LinkOperand, x, cin):
+    """y = A @ (x ⊙ cin) over K1's link form (``LinkOperand``) of a 0/1
+    operator A. x: (n, V); cin: (n, 1) shared or (n, V) per column; all
+    contiguous, of one dtype (f64, f32 or bf16). Returns (n, V) in x's
+    dtype. CPU tensors run ``links_scaled_matvec_plain``; CUDA tensors
+    launch ``csrc/bsr_spmm.cu::links_spmm_kernel`` on the current stream
+    (no workspace, no host read: it captures in a CUDA graph)."""
+    with tracing.span("k1"):
+        if not x.is_cuda:
+            return links_scaled_matvec_plain(op, x, cin)
+        # one test, its message made only on failure: the whole-crawl loop
+        # is paced by the host
+        dev, dt = x.device, x.dtype
+        n = op.ptr.shape[0] - 1
+        v = x.shape[1] if x.dim() == 2 else 0
+        if not (dt in _DTYPE_CODE and x.dim() == 2 and x.shape[0] == n
+                and x.is_contiguous() and cin.dim() == 2
+                and cin.shape[0] == n and cin.shape[1] in (1, v)
+                and cin.dtype == dt and cin.device == dev
+                and cin.is_contiguous()
+                and all(t.dtype == torch.int32 and t.device == dev
+                        and t.is_contiguous() for t in op[:3])):
+            raise ValueError(
+                f"K1's link form takes a contiguous ({n}, V) x of f64, f32 "
+                f"or bf16, a contiguous ({n}, 1) or ({n}, V) cin of its "
+                "dtype and contiguous int32 ptr, cols and long_rows, all on "
+                f"x's device: x {tuple(x.shape)} {dt} on {dev}, cin "
+                f"{tuple(cin.shape)} {cin.dtype} on {cin.device}, "
+                + ", ".join(f"{t.dtype} on {t.device}" for t in op[:3]))
+        out = torch.empty_like(x)
+        err = _lib().links_spmm_launch(
+            _DTYPE_CODE[dt], op.ptr.data_ptr(), op.cols.data_ptr(),
+            op.long_rows.data_ptr(), op.long_rows.numel(), n, op.lanes,
+            x.data_ptr(), cin.data_ptr(), cin.shape[1], out.data_ptr(), v,
+            _stream(dev))
+        counters.k1_links += 1
+        counters.bsr_spmm_bytes += op.nbytes
+        _raise_on(err, "links_spmm")
+        return out
 
 
 # -------------------------------------------------------- sweep epilogue

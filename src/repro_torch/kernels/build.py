@@ -40,14 +40,16 @@ class Counters:
     """Plain integer counts of kernel launches, one field per wrapper, and
     K2's host reads and graph builds; a wrapper adds one where it launches
     its kernel (K2 adds its graph's launches after its host read). Beside
-    K1's launches, the operator bytes (blocks, idx and row_ptr) they read."""
+    K1's launches, blocked and link form, the operator bytes they read
+    (blocks, idx and row_ptr; ptr, cols and long_rows)."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
         self.bsr_spmm = 0        # K1 kernel launches
-        self.bsr_spmm_bytes = 0  # operator bytes those K1 launches read
+        self.bsr_spmm_bytes = 0  # operator bytes the K1 launches (both forms) read
+        self.k1_links = 0        # K1's link-form kernel launches
         self.sweep_epilogue = 0  # epilogue kernel launches (two per sweep or certificate)
         self.bsr_converge = 0    # K2 calls on the card
         self.host_syncs = 0      # K2's host reads (one per call)

@@ -4,6 +4,9 @@
 // (src/repro/kernels/bsr_spmm.py, launched by _bsr_scaled_matvec):
 //     y = (A_bsr @ (x * cin)) * mask
 // over the nonzero (BS x BS) blocks of A, sorted by block row.
+// links_spmm (K1's link form) takes K1's place on the whole-crawl sweep
+// (kernels/ops.py::hits_sweep_bsr), whose operators are 0/1 link lists in
+// the crawl's own numbering: see its note below K1.
 //
 // The sweep epilogue (ep_slice_kernel + ep_finish_kernel) is the per-sweep
 // body of the TPU loop bsr_converge_cols (same file) after its two K1
@@ -426,6 +429,144 @@ int k1_group(int dtype, int bs, const void* blocks, const int* idx,
                                 cin, cin_cols, mask, y, ld, col0, v, ws, cnt,
                                 active, launches, s);
   });
+}
+
+// ------------------------------------------------------ K1, link form
+//
+// links_spmm_kernel replaces, on the whole-crawl sweep only, what the
+// reference runs there: _bsr_kernel through its hits_sweep_bsr, over the
+// crawl's 0/1 link matrix stored as dense 128 x 128 blocks. Its operand
+// is the matrix as what it is, a list of links in the crawl's own
+// numbering: ptr (n + 1) int32 offsets and cols, one int32 column a link,
+// sorted by row and by column within a row. It computes
+//     y[i, c] = sum over the links (i, j) of rnd_T(x[j, c] * cin[j, c'])
+// (c' = c, or 0 for a shared (n, 1) cin). It is no block kernel: the
+// sweep's operators carry no values (Ca, Ch are vectors), a block of a
+// whole crawl is ~0.5 % full, and a sparse product uses no tensor cores.
+//
+// Bound: bytes. The index stream (4 B a link, plus ptr) is read once; the
+// gathered x and cin (169 KB and 272 KB each on the crawl cells) stay in
+// the 50 MB L2. No workspace, no fold, no atomics. On an H100 it takes
+// ~20 us a launch on britannica-bb's 1.84 M links (12 % of the byte bound:
+// two 8-byte gathers a link from L2) and ~8.5 us on yahoo-bb's.
+//
+// Work split, fixed by the operator at build time (ops.link_operand):
+// `lanes` (1 to 32, a power of two) lanes take a row; a CTA of
+// KL_THREADS takes KL_THREADS / lanes consecutive rows. A row with more
+// than KL_ROUNDS * lanes links (a hub) is "long": its own CTA takes it, all
+// KL_THREADS threads (long_rows lists them), and the row's group of lanes
+// skips it. So a row's lanes add at most KL_ROUNDS (32) links each, a long
+// row's threads links / KL_THREADS each (31 for the largest hub of the
+// crawl cells, 7,790 links), and no hub holds a wave back.
+//
+// Order: a thread adds its links (every lanes-th, or KL_THREADS-th, of
+// the row) in link order into an f64 sum; the lanes then add by a fixed
+// xor butterfly, a long row's warps in warp order. The order depends on
+// the row's length and the operator alone, so two launches give the same
+// bits and rows with equal links give equal sums (ties in the authority
+// vector stay ties). Each term is x * cin rounded to T (x's dtype), as
+// K1 rounds it; the sum is kept in f64 and rounded once to T.
+// kernels/bsr_spmm.py::links_scaled_matvec_plain repeats this order.
+
+constexpr int KL_THREADS = 256;
+constexpr int KL_ROUNDS = 32;  // links a lane takes at most (long rows aside)
+
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+
+// a value of T from the f64 sum, rounded once (bf16 through f32, as
+// torch's conversion from f64 goes)
+template <typename T> __device__ __forceinline__ T from_f64(double s) { return (T)s; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f64(double s) {
+  return __float2bfloat16_rn((float)s);
+}
+
+// rnd_T(x[j, c] * cin[j, c']) as f64; the product is not fused into the sum
+template <typename T>
+__device__ __forceinline__ double kl_term(const T* __restrict__ x, const T* __restrict__ cin,
+                                          int cin_cols, int v, long j, int c) {
+  const typename Num<T>::Acc xv = Num<T>::to_acc(x[j * v + c]);
+  const typename Num<T>::Acc cv = Num<T>::to_acc(cin[cin_cols == 1 ? j : j * v + c]);
+  return (double)rnd<T>(mul_rn(xv, cv));
+}
+
+// the f64 sum of links [k0, k1) of every step-th link from k0, in link
+// order, four loads in flight
+template <typename T>
+__device__ __forceinline__ double kl_sum(const int* __restrict__ cols, int k0, int k1, int step,
+                                         const T* __restrict__ x, const T* __restrict__ cin,
+                                         int cin_cols, int v, int c) {
+  double s = 0.0;
+  int k = k0;
+  for (; k + 3 * step < k1; k += 4 * step) {
+    const int j0 = __ldg(cols + k), j1 = __ldg(cols + k + step);
+    const int j2 = __ldg(cols + k + 2 * step), j3 = __ldg(cols + k + 3 * step);
+    const double t0 = kl_term(x, cin, cin_cols, v, j0, c);
+    const double t1 = kl_term(x, cin, cin_cols, v, j1, c);
+    const double t2 = kl_term(x, cin, cin_cols, v, j2, c);
+    const double t3 = kl_term(x, cin, cin_cols, v, j3, c);
+    s += t0;
+    s += t1;
+    s += t2;
+    s += t3;
+  }
+  for (; k < k1; k += step) s += kl_term(x, cin, cin_cols, v, __ldg(cols + k), c);
+  return s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(KL_THREADS)
+links_spmm_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
+                  const int* __restrict__ long_rows, int n_long, int n, int lanes,
+                  const T* __restrict__ x, const T* __restrict__ cin, int cin_cols,
+                  T* __restrict__ y, int v) {
+  __shared__ double red[KL_THREADS / 32];
+  const int t = threadIdx.x;
+  if ((int)blockIdx.x < n_long) {  // one long row, the whole CTA
+    const int row = long_rows[blockIdx.x];
+    const int k0 = ptr[row], k1 = ptr[row + 1];
+    for (int c = 0; c < v; ++c) {
+      double s = kl_sum(cols, k0 + t, k1, KL_THREADS, x, cin, cin_cols, v, c);
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (t % 32 == 0) red[t / 32] = s;
+      __syncthreads();
+      if (t == 0) {
+        double tot = 0.0;
+        for (int w = 0; w < KL_THREADS / 32; ++w) tot += red[w];
+        y[(long)row * v + c] = from_f64<T>(tot);
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  // rows of `lanes` lanes each; every lane of the warp reaches the shuffles
+  const int row = (blockIdx.x - n_long) * (KL_THREADS / lanes) + t / lanes;
+  const int lane = t % lanes;
+  int k0 = 0, k1 = 0;
+  if (row < n) {
+    k0 = ptr[row];
+    k1 = ptr[row + 1];
+  }
+  const bool mine = row < n && k1 - k0 <= KL_ROUNDS * lanes;  // else its own CTA writes it
+  if (!mine) k1 = k0;
+  for (int c = 0; c < v; ++c) {
+    double s = kl_sum(cols, k0 + lane, k1, lanes, x, cin, cin_cols, v, c);
+    for (int o = lanes / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (mine && lane == 0) y[(long)row * v + c] = from_f64<T>(s);
+  }
+}
+
+template <typename T>
+cudaError_t launch_links(const int* ptr, const int* cols, const int* long_rows, int n_long,
+                         int n, int lanes, const void* x, const void* cin, int cin_cols, void* y,
+                         int v, cudaStream_t s) {
+  const int per_cta = KL_THREADS / lanes;
+  const int grid = n_long + (n + per_cta - 1) / per_cta;
+  if (grid == 0) return cudaSuccess;
+  links_spmm_kernel<T><<<grid, KL_THREADS, 0, s>>>(
+      ptr, cols, long_rows, n_long, n, lanes, static_cast<const T*>(x),
+      static_cast<const T*>(cin), cin_cols, static_cast<T*>(y), v);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------- sweep epilogue
@@ -1191,6 +1332,27 @@ int bsr_spmm_launch(int dtype, int bs, int vt, const void* blocks,
   return k1_group(dtype, bs, blocks, idx, row_ptr, nblocks, n_brows, x, cin,
                   cin_cols, mask, y, ld, col0, v, ws, cnt, active, nullptr, s,
                   false);
+}
+
+// K1's link form: y = A @ (x * cin) over the link list (ptr, cols) of an
+// n-row 0/1 operator; x and y row-major (n, v), cin (n, 1) or (n, v);
+// lanes (1, 2, 4, ..., 32) a row, the n_long rows of long_rows (more than
+// KL_ROUNDS * lanes links each) a CTA each.
+int links_spmm_launch(int dtype, const int* ptr, const int* cols,
+                      const int* long_rows, int n_long, int n, int lanes,
+                      const void* x, const void* cin, int cin_cols, void* y,
+                      int v, void* stream) {
+  if (n < 0 || n_long < 0 || v < 1 || lanes < 1 || lanes > 32 ||
+      (lanes & (lanes - 1)) != 0 || (cin_cols != 1 && cin_cols != v)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF64: return launch_links<double>(ptr, cols, long_rows, n_long, n, lanes, x, cin, cin_cols, y, v, s);
+    case kF32: return launch_links<float>(ptr, cols, long_rows, n_long, n, lanes, x, cin, cin_cols, y, v, s);
+    case kBF16: return launch_links<__nv_bfloat16>(ptr, cols, long_rows, n_long, n, lanes, x, cin, cin_cols, y, v, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // one sweep's epilogue (mode 0, predicated on ctl[0]) or the certificate

@@ -1,6 +1,6 @@
 """Host-side BSR and segment preparation and the wrappers over the
 kernels (port of ``repro.kernels.ops``), with the whole-graph
-accelerated-HITS sweep on K1 (``hits_sweep_bsr``)."""
+accelerated-HITS sweep on K1's link form (``hits_sweep_bsr``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,7 +13,8 @@ import torch
 from .. import tracing
 from ..graph.structure import BSR, Graph, to_bsr
 from ..runtime import from_host, resolve_device, torch_dtype
-from .bsr_spmm import BsrOperand, bsr_converge_cols, bsr_scaled_matvec
+from .bsr_spmm import (KL_ROUNDS, BsrOperand, LinkOperand, bsr_converge_cols,
+                       bsr_scaled_matvec, links_scaled_matvec)
 from .build import Scratch
 from .seg_matmul import seg_matmul
 
@@ -241,43 +242,97 @@ def bsr_nblocks(g: Graph, bs: int, transpose: bool = False) -> int:
     return len(keys) + nbr - len(np.unique(keys // nbr))
 
 
+LINK_TERMS = 4  # links a lane aims at in K1's link form (rows of the mean length)
+
+
+def link_lanes(lengths: np.ndarray) -> int:
+    """The lanes K1's link form gives a row of an operator with these row
+    lengths: the power of two (1 to 32) nearest above the mean length of
+    its non-empty rows over ``LINK_TERMS``. Rows longer than ``KL_ROUNDS``
+    x lanes are the kernel's long rows, a CTA each."""
+    live = lengths[lengths > 0]
+    want = live.mean() / LINK_TERMS if live.size else 1.0
+    lanes = 1
+    while lanes < 32 and lanes < want:
+        lanes *= 2
+    return lanes
+
+
+def link_operand(g: Graph, transpose: bool = False,
+                 device="cuda") -> LinkOperand:
+    """K1's link form of g's 0/1 operator on ``device``: L (row i: page
+    i's out-links) or, with ``transpose``, Lᵀ (row i: its in-links), in
+    the graph's own node numbering; a repeated link stays two entries.
+    The kernel's work split (``lanes``, the long rows) is fixed here, once,
+    from the row lengths."""
+    dev = resolve_device(device)
+    with tracing.span("bsr.blocks"):
+        rows, cols = (g.dst, g.src) if transpose else (g.src, g.dst)
+        if len(rows) >= 2**31:
+            raise ValueError(f"{len(rows)} links: K1's link form indexes "
+                             "them with int32")
+        order = np.lexsort((cols, rows))
+        ptr = _ptr_of(rows[order], g.n_nodes, "links within [0, n)")
+        lengths = np.diff(ptr)
+        lanes = link_lanes(lengths)
+        long_rows = np.nonzero(lengths > KL_ROUNDS * lanes)[0]
+    with tracing.span("bsr.stage"):
+        host = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                for a in (ptr, cols[order], long_rows)]
+    with tracing.span("bsr.h2d"):
+        out = LinkOperand(*(t.to(dev) for t in host), lanes)
+        if dev.type == "cuda" and tracing.enabled():
+            torch.cuda.synchronize(dev)
+    return out
+
+
 def hits_sweep_bsr(g: Graph, ca=None, ch=None, bs: int = 128,
                    dtype="float32", device="cuda"):
-    """Accelerated-HITS sweep on the BSR kernel path (K1).
+    """Accelerated-HITS sweep over the whole graph on K1's link form.
 
     a = Lᵀ(h ⊙ ch);  h' = L(a ⊙ ca);  h' ← h'/‖h'‖₁. Returns sweep(h)->(h',a)
-    plus the two DeviceBSR structures (LT for the authority step, L for the
-    hub step). ``ca``/``ch``: None or (N,) arrays. The operators are built
-    in the graph's own node order (no blocking permutation), as the
-    reference builds them, so a whole crawl stores nearly every block:
-    britannica's Lᵀ holds 27,214 of 165 x 165 possible blocks. Each
-    operator's sweep keeps one K1 workspace. On the card the operators'
-    size is checked against the card's free memory before any block is
-    built, and a graph that does not fit raises ``MemoryError``.
+    plus the two ``LinkOperand``s (Lᵀ for the authority step, L for the
+    hub step). h: (N,) or (N, V); ``ca``/``ch``: None or (N,) arrays, cast and
+    laid out as (N, 1) once, here. The operators are 0/1 and carry no
+    values, so they are stored as their links in the graph's own node
+    order (the reference's ``hits_sweep_bsr`` stores them as dense
+    ``bs`` x ``bs`` blocks: britannica's Lᵀ holds 27,214 of 165 x 165,
+    each ~0.5 % full), and each product is one launch of
+    ``bsr_spmm.links_scaled_matvec`` over exactly N rows. ``bs`` is kept
+    for the reference's signature; the link form has no blocks and does
+    not read it. On the card the operators' bytes are checked against the
+    card's free memory before any is built, and a graph that does not fit
+    raises ``MemoryError``.
     """
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
+    n = g.n_nodes
     with tracing.span("ops.fit"):
         if dev.type == "cuda":
-            need = (bsr_nblocks(g, bs, True) + bsr_nblocks(g, bs, False)) \
-                * bs * bs * torch.empty((), dtype=dt).element_size()
+            need = 2 * 4 * (n + 1 + g.n_edges) \
+                + 2 * n * torch.empty((), dtype=dt).element_size()
             free, _total = torch.cuda.mem_get_info(dev)
             if need > free:
                 raise MemoryError(
-                    f"hits_sweep_bsr: the two BSR operators of this graph "
-                    f"(N={g.n_nodes}, bs={bs}, {dt}) need "
-                    f"{need / 2**30:.1f} GiB of device memory, "
-                    f"{free / 2**30:.1f} GiB is free")
-    lt = DeviceBSR.build(g, bs, transpose=True, dtype=dtype, device=dev)
-    l = DeviceBSR.build(g, bs, transpose=False, dtype=dtype, device=dev)  # noqa: E741
-    ca_t = None if ca is None else torch.as_tensor(ca).to(dev, dt)
-    ch_t = None if ch is None else torch.as_tensor(ch).to(dev, dt)
-    scratch = (Scratch(dev), Scratch(dev)) if dev.type == "cuda" \
-        else (None, None)
+                    f"hits_sweep_bsr: the two link-form operators of this "
+                    f"graph (N={n}, {g.n_edges} links, {dt}) need "
+                    f"{need / 2**30:.3f} GiB of device memory, "
+                    f"{free / 2**30:.3f} GiB is free")
+    lt = link_operand(g, transpose=True, device=dev)
+    l = link_operand(g, transpose=False, device=dev)  # noqa: E741
+
+    def diag(c):
+        if c is None:
+            return torch.ones((n, 1), dtype=dt, device=dev)
+        return torch.as_tensor(c).to(dev, dt).reshape(n, 1).contiguous()
+    ca_t, ch_t = diag(ca), diag(ch)
 
     def sweep(h):
-        a = bsr_matvec(lt, h, ch_t, scratch=scratch[0])
-        h_new = bsr_matvec(l, a, ca_t, scratch=scratch[1])
+        x = h[:, None] if h.dim() == 1 else h
+        a = links_scaled_matvec(lt, x.contiguous(), ch_t)
+        h_new = links_scaled_matvec(l, a, ca_t)
+        if h.dim() == 1:
+            a, h_new = a[:, 0], h_new[:, 0]
         h_new = h_new / (h_new.abs().sum(dim=0, keepdim=h.dim() > 1) + 1e-30)
         return h_new, a
 

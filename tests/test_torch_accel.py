@@ -316,7 +316,7 @@ def test_hits_sweep_bsr_matches_reference_kernel(bsr_oracle, case):
     name, scale = case
     _, g, (ca, ch) = bsr_case(name, scale)
     sweep, lt, lf = hits_sweep_bsr(g, ca, ch, bs=128, device="cpu")
-    assert lt.blocks.dtype == torch.float32 and lt.n_nodes == g.n_nodes
+    assert lt.cols.dtype == torch.int32 and lt.ptr.shape == (g.n_nodes + 1,)
     hs, as_ = bsr_oracle[f"{name}/h"], bsr_oracle[f"{name}/a"]
     h = torch.full((g.n_nodes,), 1.0 / g.n_nodes, dtype=torch.float32)
     reset_counters()
@@ -325,7 +325,8 @@ def test_hits_sweep_bsr_matches_reference_kernel(bsr_oracle, case):
         assert h.dtype == torch.float32 and h.shape == (g.n_nodes,)
         assert l1(h.numpy(), hs[k]) <= 1e-6, k
         assert l1(a.numpy(), as_[k]) <= 1e-6 * np.abs(as_[k]).sum(), k
-    assert counters.bsr_spmm == 0  # CPU tensors: the plain version
+    # CPU tensors: the plain version
+    assert counters.bsr_spmm == counters.k1_links == 0
 
 
 @pytest.mark.parametrize("case", BSR_CASES, ids=lambda c: c[0])
@@ -343,24 +344,135 @@ def test_engine_with_kernel_path(case):
 
 
 def test_hits_sweep_bsr_multicolumn_and_shapes():
-    """(N, V) iterates normalize per column; the operators' block counts
-    are what ``bsr_nblocks`` predicts before they are built."""
-    from repro_torch.kernels import bsr_nblocks
+    """(N, V) iterates normalize per column; each operator holds one
+    entry a link (``ptr[-1]`` is the graph's link count), Lᵀ's row i the
+    sources of page i's in-links and L's the targets of its out-links,
+    each row's by column, whatever ``bs`` says."""
     _, g, (ca, ch) = bsr_case("jobs", 0.05)
     for bs in (16, 128):
         sweep, lt, lf = hits_sweep_bsr(g, ca, ch, bs=bs, dtype="float64",
                                        device="cpu")
-        assert lt.blocks.shape[0] == bsr_nblocks(g, bs, transpose=True)
-        assert lf.blocks.shape[0] == bsr_nblocks(g, bs, transpose=False)
+        for op, rows, cols in ((lt, g.dst, g.src), (lf, g.src, g.dst)):
+            assert op.ptr.shape == (g.n_nodes + 1,)
+            assert int(op.ptr[-1]) == op.cols.numel() == g.n_edges
+            order = np.lexsort((cols, rows))
+            np.testing.assert_array_equal(op.cols.numpy(), cols[order])
+            np.testing.assert_array_equal(
+                np.diff(op.ptr.numpy()), np.bincount(rows, minlength=g.n_nodes))
     h1 = torch.full((g.n_nodes,), 1.0 / g.n_nodes, dtype=torch.float64)
     h3 = h1[:, None].repeat(1, 3).contiguous()
     for _ in range(4):
         h1, _ = sweep(h1)
         h3, _ = sweep(h3)
     np.testing.assert_allclose(h3.sum(dim=0).numpy(), 1.0, atol=1e-12)
-    for j in range(3):  # f64 block products summed in other orders
+    for j in range(3):  # the L1 norm of an (N, 3) column adds in another order
         np.testing.assert_allclose(h3[:, j].numpy(), h1.numpy(), rtol=1e-13,
                                    atol=0)
+
+
+def link_case(case):
+    """(graph, V, per-column cin) of a link-form case: a crawl with an
+    empty row, one page holding most links (a long row of the kernel), a
+    repeated link, or three columns with per-column diagonals."""
+    rng = np.random.default_rng(11)
+    n, e = 300, 2400
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    if case == "empty row":
+        keep = (src != 7) & (dst != 7)
+        src, dst = src[keep], dst[keep]
+    elif case == "hub":
+        hub = rng.random(e) < 0.7
+        dst[hub], src[hub & (src == 5)] = 5, 6
+    elif case == "repeated link":
+        src, dst = np.append(src, [src[0]] * 2), np.append(dst, [dst[0]] * 2)
+    from repro_torch.graph.structure import Graph
+    return Graph(n, src, dst), (3 if case == "3 columns" else 1), \
+        case == "3 columns"
+
+
+def kernel_order_sum(op, x, cin):
+    """The link kernel's sum written out as loops: lane l of a row's w
+    lanes (``op.lanes``, 256 for a long row) adds links l, l + w, ... from
+    0; an xor butterfly adds a warp's lanes; a long row's warps are added
+    in order."""
+    ptr, cols = op.ptr.numpy(), op.cols.numpy()
+    terms = (x * cin).double().numpy()[cols]
+    y = np.zeros((len(ptr) - 1, x.shape[1]))
+    for i in range(len(ptr) - 1):
+        seg = terms[ptr[i]:ptr[i + 1]]
+        w = 256 if len(seg) > 32 * op.lanes else op.lanes
+        for c in range(x.shape[1]):
+            part = np.zeros(w)
+            for lane in range(w):
+                for t in seg[lane::w, c]:
+                    part[lane] += t
+            for warp in range(0, w, 32) if w > 32 else [0]:
+                p = part[warp:warp + min(w, 32)]
+                o = len(p) // 2
+                while o:
+                    p = p + p[np.arange(len(p)) ^ o]
+                    o //= 2
+                y[i, c] += p[0]
+    return torch.tensor(y).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_link_form_plain_sums_in_the_kernel_order(dtype):
+    """The plain version of K1's link form adds each row's terms in the
+    CUDA kernel's order, so the card's tests hold the kernel to it bit for
+    bit: equal to that order written out as loops, with a long row (a hub
+    of a CTA's 256 lanes), empty rows and two columns."""
+    from repro_torch.kernels import link_operand, links_scaled_matvec_plain
+    from repro_torch.graph.structure import Graph
+    rng = np.random.default_rng(2)
+    n, e = 120, 1500
+    src, dst = rng.integers(0, n // 2, e), rng.integers(0, n, e)
+    dst[:700] = 9
+    g = Graph(n, src, dst)
+    dt = getattr(torch, dtype)
+    x = torch.tensor(rng.random((n, 2)), dtype=dt)
+    cin = torch.tensor(rng.random((n, 1)), dtype=dt)
+    for transpose in (True, False):
+        op = link_operand(g, transpose=transpose, device="cpu")
+        assert (9 in op.long_rows.tolist()) == transpose
+        assert torch.equal(links_scaled_matvec_plain(op, x, cin),
+                           kernel_order_sum(op, x, cin))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", ["empty row", "hub", "repeated link",
+                                  "3 columns"])
+def test_link_form_matches_blocked_k1(case, dtype):
+    """K1's link form (plain version) against the blocked K1's plain
+    version over the same graph, both operators: f64 within 1e-13 of the
+    largest entry (the same terms summed in other orders), f32 within
+    1e-6 (the blocked K1 rounds each block's product to f32, the link
+    form rounds each row's f64 sum once)."""
+    from repro_torch.kernels import DeviceBSR, bsr_matvec, link_operand
+    from repro_torch.kernels import links_scaled_matvec
+    g, v, per_column = link_case(case)
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.random((g.n_nodes, v)), dtype=dt)
+    cin = torch.tensor(rng.random((g.n_nodes, v if per_column else 1)),
+                       dtype=dt)
+    for transpose in (True, False):
+        links = link_operand(g, transpose=transpose, device="cpu")
+        blocked = DeviceBSR.build(g, 128, transpose=transpose,
+                                  dtype=dtype, device="cpu")
+        got = links_scaled_matvec(links, x, cin)
+        want = bsr_matvec(blocked, x, cin)
+        assert got.dtype == dt and got.shape == (g.n_nodes, v)
+        err = float((got.double() - want.double()).abs().max())
+        scale = float(want.double().abs().max())
+        assert err <= (1e-13 if dtype == "float64" else 1e-6) * scale
+        if case == "empty row":
+            assert not got[7].any()
+        if case == "hub" and transpose:
+            assert links.long_rows.tolist() == [5]
+            assert np.sum(g.dst == 5) > 32 * links.lanes
+        if case == "repeated link":
+            assert int(links.ptr[-1]) == g.n_edges
 
 
 # ------------------------------------------------------ power_method_jit

@@ -911,6 +911,77 @@ def test_k1_whole_graph_v1_bit_equal(cuda):
     torch.cuda.empty_cache()
 
 
+def links_on_cpu(op):
+    return K.LinkOperand(op.ptr.cpu(), op.cols.cpu(), op.long_rows.cpu(),
+                         op.lanes)
+
+
+@pytest.mark.cuda
+def test_k1_link_form_whole_crawl(cuda):
+    """K1's link form at a whole crawl's shape: britannica at scale 1.0
+    under the back-button model, f64, V 1, both operators of
+    ``hits_sweep_bsr``: bit for bit the plain version (which sums in the
+    kernel's order), twice. One sweep launches it twice
+    (``k1_links`` 2, ``bsr_spmm`` 0) and counts each operator's ptr, cols
+    and long-row list once in ``bsr_spmm_bytes``: 2 x (links + n + 1) x 4
+    B plus 4 B a long row."""
+    from repro_torch.core import back_button
+    from repro_torch.graph import paper_dataset
+    g = back_button(paper_dataset("britannica", 1.0))
+    ca, ch = accel_weights(g.indeg(), g.outdeg())
+    sweep, lt, lf = pops.hits_sweep_bsr(g, ca, ch, dtype="float64",
+                                        device=cuda)
+    assert lt.long_rows.numel() > 0
+    assert lt.lanes == pops.link_lanes(np.bincount(g.dst, minlength=g.n_nodes))
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.random((g.n_nodes, 1)), dtype=torch.float64,
+                     device=cuda)
+    for op, c in ((lt, ch), (lf, ca)):
+        cin = torch.tensor(c, dtype=torch.float64, device=cuda)[:, None] \
+            .contiguous()
+        y = K.links_scaled_matvec(op, x, cin)
+        y2 = K.links_scaled_matvec(op, x, cin)
+        yp = K.links_scaled_matvec_plain(links_on_cpu(op), x.cpu(),
+                                         cin.cpu())
+        assert torch.equal(y, y2) and torch.equal(y.cpu(), yp)
+    K.reset_counters()
+    sweep(torch.full((g.n_nodes,), 1.0 / g.n_nodes, dtype=torch.float64,
+                     device=cuda))
+    torch.cuda.synchronize()
+    c = K.counters
+    assert c.k1_links == 2 and c.bsr_spmm == 0
+    assert c.bsr_spmm_bytes == 2 * (g.n_edges + g.n_nodes + 1) * 4 \
+        + 4 * (lt.long_rows.numel() + lf.long_rows.numel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("v,per_column", [(1, False), (3, False), (3, True)])
+def test_k1_link_form_matches_plain(cuda, dtype, v, per_column):
+    """K1's link form on a crawl with empty rows, a hub (a long row, a CTA
+    of its own) and a repeated link, for each dtype, V 1 and 3, a shared
+    or a per-column diagonal: bit for bit the plain version, twice."""
+    rng = np.random.default_rng(13)
+    n, e = 5000, 40000
+    src, dst = rng.integers(0, n // 2, e), rng.integers(0, n, e)
+    dst[: e // 4] = 17
+    g = Graph(n, np.append(src, src[:2]), np.append(dst, dst[:2]))
+    dt = TDT[dtype]
+    x = torch.tensor(rng.random((n, v)), dtype=dt, device=cuda)
+    cin = torch.tensor(rng.random((n, v if per_column else 1)), dtype=dt,
+                       device=cuda)
+    for transpose in (True, False):
+        op = pops.link_operand(g, transpose=transpose, device=cuda)
+        if transpose:
+            assert 17 in op.long_rows.tolist()
+        y = K.links_scaled_matvec(op, x, cin)
+        y2 = K.links_scaled_matvec(op, x, cin)
+        yp = K.links_scaled_matvec_plain(links_on_cpu(op), x.cpu(),
+                                         cin.cpu())
+        assert y.dtype == dt
+        assert torch.equal(y, y2) and torch.equal(y.cpu(), yp)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("check_every", [1, 3])
 def test_power_method_jit_graph_matches_host_loop(cuda, check_every):
@@ -966,12 +1037,13 @@ def test_engine_on_card_matches_cpu(cuda, stragglers):
 
 @pytest.mark.cuda
 def test_hits_sweep_bsr_raises_past_free_memory(cuda, monkeypatch):
-    """Operators larger than the card's free memory raise before any block
-    is built; nothing switches path."""
+    """Operators larger than the card's free memory raise before any is
+    built; nothing switches path. The free memory reported is 4 B a link,
+    below the link form's 8 B a link (both operators' cols) and ptr."""
     from repro_torch.graph import paper_dataset
     g = paper_dataset("jobs", 0.05)
     monkeypatch.setattr(torch.cuda, "mem_get_info",
-                        lambda device=None: (1 << 20, 80 << 30))
+                        lambda device=None: (4 * g.n_edges, 80 << 30))
     with pytest.raises(MemoryError, match="hits_sweep_bsr"):
         pops.hits_sweep_bsr(g, device=cuda)
 

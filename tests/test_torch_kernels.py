@@ -507,7 +507,7 @@ def test_wrappers_count_nothing_on_the_cpu():
     K.reset_counters()
     run_port_loop(g, vecs, perm, inv, 16, 0, None, 1e-10, 50)
     assert K.counters.as_dict() == {"bsr_spmm": 0, "bsr_spmm_bytes": 0,
-                                    "sweep_epilogue": 0,
+                                    "k1_links": 0, "sweep_epilogue": 0,
                                     "bsr_converge": 0, "host_syncs": 0,
                                     "k2_graph_builds": 0, "seg_matmul": 0}
 
